@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: build its kernels, hold
 each against its plain PyTorch version, serve starcoder2-7b through the
-paged runtime, and compare the slice's logits through the kernels with the
-same through the plain versions.
+paged runtime, run zamba2-2.7b's and rwkv6-1.6b's dense prefill through
+the flash-attention and linear-scan kernels, serve zamba2-2.7b densely,
+and compare every path's logits through the kernels with the same through
+the plain versions.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -10,12 +12,20 @@ Phases (any failure raises and exits non-zero; none is caught):
 
 1. card    -- name and power limit from nvidia-smi; TF32 off for matmuls
               and cuDNN, so float32 means float32.
-2. build   -- nvcc builds every kernel of ``src/repro_torch/kernels/csrc``.
-3. kernels -- each kernel against its plain version at the slice's shapes
-              (H=36, Hkv=4, D=128, page=16, bf16 and f32): paged attention
-              within 2e-5 (f32) / 2e-2 (bf16) absolute, the scatter
-              bit-exact; then timed with CUDA events beside its plain
-              version, its library call where one exists, and its bound.
+2. build   -- nvcc builds every kernel of ``src/repro_torch/kernels/csrc``,
+              one process per source, all at once.
+3. kernels -- each kernel against its plain version at its main path's
+              shapes, bf16 and f32, elementwise |a - b| <= tol + tol |b|:
+              paged attention (H=36, Hkv=4, D=128, page=16) and flash
+              attention (zamba2's prefill B=4, S=2048, H=Hkv=32, D=80,
+              causal; a gemma2 local layer B=1, S=8192, H=32, Hkv=16,
+              D=128, window 4096, softcap 50) within 2e-5 (f32) / 2e-2
+              (bf16); the scatter bit-exact; the linear scan (mamba2 B=4,
+              S=2048, H=80, K=Vd=64, scalar decay, chunk 128; rwkv6 B=4,
+              S=2048, H=32, K=Vd=64, vector decay + bonus, chunk 32) within
+              2e-4 / 5e-2, and in f32 against the exact oracle at S=512.
+              Then each timed with CUDA events beside its plain version,
+              its library call where one exists, and its bound.
 4. serve   -- ServeEngine(kv_store="paged", kv_storage="device") on
               starcoder2-7b at full width and depth, random bf16 weights
               from a seed: EpochPOP-pool, 2 decode engines, 1 prefill
@@ -28,6 +38,19 @@ Phases (any failure raises and exits non-zero; none is caught):
               kernels vs through the plain versions, same weights, on the
               card: logits within 5e-2 absolute + 5e-2 relative in bf16,
               2e-4 in f32 (f32 compute and pages over the bf16 weights).
+   prefill_kv -- one 512-token prompt through the full-sequence prefill
+              (flash) into pages, against the chunked paged prefill's pages.
+6. dense   -- zamba2-2.7b at full width and depth: make_prefill_step on 4
+              prompts x 2048 tokens through the kernels (9 flash and 54
+              scan launches per prefill) vs the plain versions, in bf16 and
+              f32 compute; the prefill cache grafted into init_cache and 8
+              decode steps against the train-mode forward; 8 greedy
+              make_serve_step steps; then rwkv6-1.6b's prefill of 2 x 2048
+              through the vector-decay scan vs the plain version.
+   dense serve -- ServeEngine(kv_store="dense") on zamba2-2.7b:
+              EpochPOP-pool, 2 decode engines, prefix cache, 6 requests;
+              no use-after-free, no leaks, prefix hits.
+   profile -- the zamba2 prefill under torch.profiler.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.  Without CUDA it exits non-zero before printing either.
@@ -35,6 +58,7 @@ device JSON line.  Without CUDA it exits non-zero before printing either.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -47,20 +71,29 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import starcoder2_7b  # noqa: E402
+from repro_torch.configs import (rwkv6_1p6b, starcoder2_7b,  # noqa: E402
+                                 zamba2_2p7b)
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.paged_attention import build_block_table  # noqa: E402
-from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.model import (apply_model, init_cache,  # noqa: E402
+                                      init_params)
 from repro_torch.runtime.kv_store import PagedKVStore  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.paged_model import (paged_decode_step,  # noqa: E402
-                                           prefill_kv_chunked)
+                                           prefill_kv, prefill_kv_chunked)
+from repro_torch.train.train_step import (make_prefill_step,  # noqa: E402
+                                          make_serve_step)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS = 67e12                # H100 SXM, float32 outside the tensor cores
+# peak operation rates for the work's type (H100 SXM data sheet, dense):
+# bf16 on the tensor cores, float32 outside them
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 SLICE_TOL = 5e-2                 # bf16 logits through 32 layers
 
 H, HKV, D, PAGE = 36, 4, 128, 16  # starcoder2-7b attention; the serve page
@@ -70,15 +103,36 @@ DEV = "cuda"
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:118",
     "paged_scatter": "src/repro/kernels/paged_attention.py:176",
+    "flash_attention": "src/repro/kernels/flash_attention.py:94",
+    "linear_scan": "src/repro/kernels/linear_scan.py:81",
 }
-SOURCES = {
-    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
-    "paged_scatter": "src/repro_torch/kernels/csrc/paged_scatter.cu",
-}
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+           for name in REPLACES}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def within(a: torch.Tensor, b: torch.Tensor, tol: float):
+    """(max |a - b|, whether |a - b| <= tol + tol |b| everywhere)."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    return float(diff.max()), bool((diff <= tol + tol * b.abs()).all())
+
+
+def bound_ms(bytes_: float, flops: float, dtype):
+    """Least time for the work: bytes over HBM bandwidth vs operations over
+    the peak rate for their type; returns (ms, what bounds it)."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -147,10 +201,11 @@ def _decode_rows(rng, lengths):
     return blocks
 
 
-def _att_bound_ms(table, lengths, elem: int, B: int):
+def _att_bound_ms(table, lengths, elem: int, B: int, dtype):
     """Least time for the work these inputs need: the live K/V token rows
     (each distinct (page, slot) once), q and out, over HBM bandwidth; vs
-    4 * G * D flops per (row, kv head, live position) in float32."""
+    4 * G * D flops per (row, kv head, live position) at the pages' type's
+    peak rate."""
     t = table.cpu().numpy()
     n = lengths.cpu().numpy()
     live = set()
@@ -163,10 +218,7 @@ def _att_bound_ms(table, lengths, elem: int, B: int):
                 pairs += 1
     bytes_ = (2 * len(live) * HKV * D * elem + 2 * B * H * D * 4
               + t.size * 4 + n.size * 4)
-    flops = 4 * pairs * H * D
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(bytes_, 4 * pairs * H * D, dtype)
 
 
 def check_attention(rng, dtype):
@@ -233,7 +285,7 @@ def check_attention(rng, dtype):
                                                 scale=scale))
         plain = cuda_ms(lambda: ref.paged_attention_ref(tq, kp, vp, tt, tl,
                                                         scale=scale))
-        bound, by = _att_bound_ms(tt, tl, elem, tq.shape[0])
+        bound, by = _att_bound_ms(tt, tl, elem, tq.shape[0], dtype)
         times[name] = (ms, plain, bound, by)
         log(f"  paged_attention {str(dtype)[6:]} {name} B={tq.shape[0]}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms "
@@ -293,12 +345,164 @@ def check_scatter(rng, dtype, L=32):
     return 0.0, (ms, plain, bound, lib)
 
 
+FLASH_SHAPES = {
+    # name: (B, S, H, Hkv, D, window, softcap)
+    "zamba2 prefill": (4, 2048, 32, 32, 80, 0, 0.0),
+    "gemma2 local": (1, 8192, 32, 16, 128, 4096, 50.0),
+}
+SCAN_SHAPES = {
+    # name: (B, S, H, K, Vd, vector decay + bonus, chunk)
+    "mamba2": (4, 2048, 80, 64, 64, False, 128),
+    "rwkv6": (4, 2048, 32, 64, 64, True, 32),
+}
+
+
+def _randn(g, shape, dtype=torch.float32):
+    return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+
+def _flash_pairs(S: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one causal head of length S."""
+    n = np.arange(1, S + 1)
+    return int((np.minimum(n, window) if window else n).sum())
+
+
+def check_flash(g, dtype):
+    """Flash attention against its plain version at zamba2's prefill shape
+    and a gemma2 local layer; returns the worst error and, per shape, the
+    kernel / plain / bound / SDPA times."""
+    tol = ATT_TOL[dtype]
+    worst, times = 0.0, {}
+    for name, (B, S, H, Hkv, D, window, cap) in FLASH_SHAPES.items():
+        q = _randn(g, (B, S, H, D), dtype)
+        k = _randn(g, (B, S, Hkv, D), dtype)
+        v = _randn(g, (B, S, Hkv, D), dtype)
+        kw = dict(window=window, softcap=cap)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, ok = within(got, want, tol)
+        log(f"  flash_attention {str(dtype)[6:]} {name}: max |err| "
+            f"{err:.3e} (tol {tol:g} abs + rel)")
+        if not ok:
+            raise AssertionError(f"flash_attention {name} {dtype}: {err}")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10, 2)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 3, 1)
+        bytes_ = (q.numel() + k.numel() + v.numel() + got.numel()) \
+            * q.element_size()
+        bound, by = bound_ms(bytes_, 4 * D * B * H * _flash_pairs(S, window),
+                             dtype)
+        lib = None
+        if not window and not cap:
+            # the same function in one PyTorch call, as a yardstick only
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = cuda_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True),
+                          10, 2)
+            del qt, kt, vt
+        times[name] = (ms, plain, bound, by, lib)
+        log(f"  flash_attention {str(dtype)[6:]} {name}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, SDPA "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{bound:.6f} ms ({by})")
+        del q, k, v, got, want
+        free_cuda()
+    return worst, times
+
+
+def _scan_inputs(g, shape, dtype, S=None, max_decay=1.0):
+    """q, k, v, log decay (and bonus) as the model hands them over: mamba2's
+    q/k are one (B, S, 1, K) matrix each viewed with stride 0 over the
+    heads."""
+    B, S0, H, K, Vd, vec, _ = shape
+    S = S or S0
+    if vec:
+        q, k = _randn(g, (B, S, H, K), dtype), _randn(g, (B, S, H, K), dtype)
+        ld_shape = (B, S, H, K)
+        bonus = _randn(g, (H, K))
+    else:
+        q = _randn(g, (B, S, 1, K), dtype).expand(B, S, H, K)
+        k = _randn(g, (B, S, 1, K), dtype).expand(B, S, H, K)
+        ld_shape = (B, S, H)
+        bonus = None
+    v = _randn(g, (B, S, H, Vd), dtype)
+    ld = -(0.01 + (max_decay - 0.01) * torch.rand(ld_shape, generator=g,
+                                                  device=DEV))
+    return (q, k, v, ld), bonus
+
+
+def _stored_bytes(t: torch.Tensor) -> int:
+    """Bytes of a tensor's distinct elements (stride-0 dims count once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def check_scan(g, dtype):
+    """The linear scan against linear_scan_ref at mamba2's and rwkv6's
+    main-path shapes, in f32 also against the exact oracle at S=512 (with
+    mamba2's decays kept under the 75 clamp over a 128 chunk, where the
+    factored form is exact); returns the worst error and the times."""
+    tol = SCAN_TOL[dtype]
+    worst, times = 0.0, {}
+    for name, shape in SCAN_SHAPES.items():
+        B, S, H, K, Vd, vec, chunk = shape
+        args, bonus = _scan_inputs(g, shape, dtype)
+        kw = dict(bonus=bonus, chunk=chunk)
+        out, st = ls.linear_scan(*args, **kw)
+        want, st_want = ref.linear_scan_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err, ok = within(out, want, tol)
+        err_st, ok_st = within(st, st_want, tol)
+        log(f"  linear_scan {str(dtype)[6:]} {name}: max |err| out "
+            f"{err:.3e}, state {err_st:.3e} (tol {tol:g} abs + rel)")
+        if not (ok and ok_st):
+            raise AssertionError(f"linear_scan {name} {dtype}: {err} "
+                                 f"{err_st}")
+        worst = max(worst, err, err_st)
+        if dtype == torch.float32:
+            eargs, ebonus = _scan_inputs(g, shape, dtype, S=512,
+                                         max_decay=0.5)
+            ekw = dict(bonus=ebonus, chunk=chunk)
+            eo, es = ls.linear_scan(*eargs, **ekw)
+            xo, xs = ref.linear_scan_exact(*eargs, **ekw)
+            e1, ok1 = within(eo, xo, tol)
+            e2, ok2 = within(es, xs, tol)
+            log(f"  linear_scan float32 {name} S=512 vs linear_scan_exact: "
+                f"max |err| out {e1:.3e}, state {e2:.3e} (tol {tol:g})")
+            if not (ok1 and ok2):
+                raise AssertionError(f"linear_scan {name} vs exact: {e1} "
+                                     f"{e2}")
+        ms = cuda_ms(lambda: ls.linear_scan(*args, **kw), 10, 2)
+        plain = cuda_ms(lambda: ref.linear_scan_ref(*args, **kw), 3, 1)
+        n = -(-S // chunk)
+        L = chunk
+        flops = 2 * B * H * n * ((L * (L - 1) // 2) * K + L * K
+                                 + (L * (L + 1) // 2) * Vd + 2 * L * K * Vd)
+        bytes_ = (sum(_stored_bytes(t) for t in args) + _stored_bytes(out)
+                  + _stored_bytes(st)
+                  + (0 if bonus is None else _stored_bytes(bonus)))
+        bound, by = bound_ms(bytes_, flops, dtype)
+        times[name] = (ms, plain, bound, by, None)
+        log(f"  linear_scan {str(dtype)[6:]} {name}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bound:.6f} ms ({by})")
+        del args, out, st, want, st_want
+        free_cuda()
+    return worst, times
+
+
 def phase_kernels():
     rng = np.random.default_rng(SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         results[("paged_attention", dtype)] = check_attention(rng, dtype)
         results[("paged_scatter", dtype)] = check_scatter(rng, dtype)
+        results[("flash_attention", dtype)] = check_flash(g, dtype)
+        results[("linear_scan", dtype)] = check_scan(g, dtype)
     torch.cuda.empty_cache()
     return results
 
@@ -331,7 +535,7 @@ def phase_serve(cfg, params, card: str, max_new: int = 16):
     rng = np.random.default_rng(SEED + 1)
     prompts = _prompts(rng, cfg.vocab)
     eng = _engine(cfg, params)
-    pa.reset_launch_counts()
+    build.reset_launch_counts()
     t0 = time.monotonic()
     eng.start()
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
@@ -341,7 +545,7 @@ def phase_serve(cfg, params, card: str, max_new: int = 16):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     eng.stop()
-    launches = dict(pa.launch_counts)
+    launches = dict(build.launch_counts)
     if eng.error is not None:
         raise AssertionError(f"engine failed: {eng.error!r}")
     for r in reqs:
@@ -390,7 +594,7 @@ def phase_profile(cfg, params, max_new: int = 16, top: int = 6):
     prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
     eng = _engine(cfg, params)
     eng.start()
-    pa.reset_launch_counts()
+    build.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -403,20 +607,31 @@ def phase_profile(cfg, params, max_new: int = 16, top: int = 6):
     eng.stop()
     if eng.error is not None:
         raise AssertionError(f"engine failed: {eng.error!r}")
-    forwards = pa.launch_counts["paged_attention"] / cfg.n_layers
+    forwards = build.launch_counts["paged_attention"] / cfg.n_layers
+    report_profile(prof, wall, forwards, cfg.n_layers, top)
+
+
+def report_profile(prof, wall: float, forwards: float, n_layers: int,
+                   top: int) -> None:
+    """Device busy time and idle share over the window, host launches per
+    forward, and the kernels that take the device time.  Only the device's
+    own events count: a host op's row also carries the device time of the
+    kernels it launched, which would count them twice."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    events = prof.key_averages()
+    all_events = prof.key_averages()
+    events = [e for e in all_events if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in events) / 1e6
-    launches = sum(e.count for e in events
+    launches = sum(e.count for e in all_events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
     log(f"profile: window {wall:.2f} s, device busy {busy:.3f} s, idle "
         f"share {1 - busy / wall:.4f}; {forwards:.0f} forwards, "
         f"{launches / forwards:.0f} kernel launches per forward "
-        f"({launches / forwards / cfg.n_layers:.1f} per layer)")
+        f"({launches / forwards / n_layers:.1f} per layer)")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"  profile kernel {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms "
             f"({dev_us(e) / 1e6 / busy:.4f} of busy), {e.count} launches")
@@ -488,7 +703,294 @@ def phase_slice(cfg, params, n_prompt: int = 100, chunk: int = 32,
                                  f"tolerance")
 
 
+def phase_prefill_kv(cfg, params, n_prompt: int = 512, chunk: int = 32):
+    """One prompt into pages two ways: the full-sequence prefill (flash
+    attention over the whole prompt, one all-layer scatter) and the chunked
+    paged prefill (paged attention per chunk).  f32 compute: the pages
+    agree within 2e-4 abs + rel (two exact attentions, summation order
+    only).  bf16: within max(5e-2, 2 e), e the chunked path's own bf16
+    distance from its f32 pages -- the two paths round at different places
+    through 32 layers."""
+    rng = np.random.default_rng(SEED + 3)
+    prompt = rng.integers(1, cfg.vocab, n_prompt).tolist()
+    blocks = list(range(1, 1 + n_prompt // PAGE))
+    pages = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.scaled(dtype=dtype)
+        full = PagedKVStore(c, len(blocks) + 1, PAGE, storage="device",
+                            device=DEV)
+        build.reset_launch_counts()
+        k, v = prefill_kv(params, c, prompt)
+        full.write_prefill(blocks, k, v)
+        flash = build.launch_counts["flash_attention"]
+        chunked = PagedKVStore(c, len(blocks) + 1, PAGE, storage="device",
+                               device=DEV)
+        for _ in prefill_kv_chunked(params, c, chunked, blocks, prompt,
+                                    chunk):
+            pass
+        torch.cuda.synchronize()
+        pages[dtype] = (torch.stack([full.k[:, blocks], full.v[:, blocks]]),
+                        torch.stack([chunked.k[:, blocks],
+                                     chunked.v[:, blocks]]), flash)
+        del full, chunked, k, v
+    own = within(pages["bfloat16"][1], pages["float32"][1], 0.0)[0]
+    for dtype, tol in (("float32", 2e-4),
+                       ("bfloat16", max(SLICE_TOL, 2 * own))):
+        a, b, flash = pages[dtype]
+        err, ok = within(a, b, tol)
+        log(f"prefill_kv {dtype}: {n_prompt}-token prompt, {flash} flash "
+            f"launches, pages vs prefill_kv_chunked's: max |diff| {err:.4e} "
+            f"(tol {tol:.4g} abs + rel): {ok}")
+        if not ok or flash != cfg.n_layers:
+            raise AssertionError(f"prefill_kv {dtype}: {err}, {flash} "
+                                 f"flash launches")
+
+
 # ----------------------------------------------------------------------------
+# 6. the dense path: zamba2-2.7b and rwkv6-1.6b prefill, zamba2 dense serve
+# ----------------------------------------------------------------------------
+
+
+def _graft(cfg, pcache, batch: int, seq: int):
+    """A prefill cache written into a zero decode cache of ``seq``
+    positions (the rule of tests/test_models_smoke.py)."""
+    cache = init_cache(cfg, batch, seq, cfg.dtype, device=DEV)
+    cache["pos"] = pcache["pos"].clone()
+    for gk, gv in pcache["groups"].items():
+        for pk, pv in gv.items():
+            for name, arr in pv.items():
+                tgt = cache["groups"][gk][pk][name]
+                tgt[tuple(slice(0, n) for n in arr.shape)] = arr.to(tgt.dtype)
+    return cache
+
+
+def _prefill_runs(cfg, params, toks):
+    """make_prefill_step through the kernels and through the plain
+    versions, in bf16 and f32 compute: {(dtype, impl): (last logits, cache,
+    launch counts, host seconds of a second, warm call)}."""
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.scaled(dtype=dtype)
+        for impl in ("cuda", "torch"):
+            step = make_prefill_step(c, impl=impl)
+            build.reset_launch_counts()
+            logits, cache = step(params, toks)
+            torch.cuda.synchronize()
+            counts = dict(build.launch_counts)
+            t0 = time.monotonic()
+            step(params, toks)
+            torch.cuda.synchronize()
+            runs[(dtype, impl)] = (logits.float(), cache, counts,
+                                   time.monotonic() - t0)
+            free_cuda()
+    return runs
+
+
+def _check_prefill(name, runs, f32_tol: float):
+    """Kernels vs plain: f32 within ``f32_tol`` abs + rel (summation order
+    through every layer); bf16 within max(5e-2, 2 e), e the plain path's
+    own bf16 distance from its f32 logits (the two bf16 paths round in
+    different places, each about e from the f32 value)."""
+    own = within(runs[("bfloat16", "torch")][0],
+                 runs[("float32", "torch")][0], 0.0)[0]
+    for dtype, tol in (("float32", f32_tol),
+                       ("bfloat16", max(SLICE_TOL, 2 * own))):
+        a, b = runs[(dtype, "cuda")][0], runs[(dtype, "torch")][0]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{name} {dtype}: non-finite logits")
+        err, ok = within(a, b, tol)
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        log(f"dense prefill {name} {dtype}: last-position logits {tuple(a.shape)}, "
+            f"kernels vs plain max |diff| {err:.4e} (tol {tol:.4g} abs + rel): "
+            f"{ok}; argmax agreement {agree:.4f}; max |logit| "
+            f"{float(b.abs().max()):.3f}; prefill host time kernels "
+            f"{1e3 * runs[(dtype, 'cuda')][3]:.1f} ms, plain "
+            f"{1e3 * runs[(dtype, 'torch')][3]:.1f} ms; launches "
+            f"{runs[(dtype, 'cuda')][2]}")
+        if not ok:
+            raise AssertionError(f"{name} {dtype} prefill logits differ")
+
+
+def phase_dense_prefill(cfg, params, batch: int = 4, seq: int = 2048,
+                        steps: int = 8):
+    """zamba2-2.7b's prefill through both kernels vs the plain versions;
+    the prefill cache grafted for ``steps`` decode steps against the
+    train-mode forward; greedy make_serve_step.  Returns the main path's
+    launch counts (the bf16 prefill through the kernels)."""
+    rng = np.random.default_rng(SEED + 4)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq + steps))
+                            ).to(DEV)
+    runs = _prefill_runs(cfg, params, toks[:, :seq])
+    main_counts = runs[("bfloat16", "cuda")][2]
+    n_shared = sum(g.repeats * sum(ls.shared_attn for ls in g.pattern)
+                   for g in cfg.groups)
+    want = {"flash_attention": n_shared, "linear_scan": cfg.n_layers}
+    for dtype in ("bfloat16", "float32"):
+        for impl, expect in (("cuda", want), ("torch", {})):
+            got = {k: runs[(dtype, impl)][2][k] for k in want}
+            if got != {k: expect.get(k, 0) for k in want}:
+                raise AssertionError(f"{dtype} {impl} prefill launches "
+                                     f"{got}, want {expect}")
+    log(f"dense prefill {cfg.name}: launches per prefill through the "
+        f"kernels {main_counts}; through the plain versions "
+        f"{runs[('bfloat16', 'torch')][2]}")
+    _check_prefill(cfg.name, runs, 1e-3)
+
+    # decode after prefill vs the train-mode forward over the same tokens
+    fwd = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.scaled(dtype=dtype)
+        full, _, _ = apply_model(params, toks, cfg=c, mode="train")
+        fwd[dtype] = full[:, seq:].float()
+        del full
+        free_cuda()
+    own = within(fwd["bfloat16"], fwd["float32"], 0.0)[0]
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", max(0.25, 2 * own))):
+        c = cfg.scaled(dtype=dtype)
+        cache = _graft(c, runs[(dtype, "cuda")][1], batch, seq + steps)
+        rows = []
+        for t in range(seq, seq + steps):
+            lg, cache, _ = apply_model(params, toks[:, t:t + 1], cfg=c,
+                                       mode="decode", cache=cache)
+            rows.append(lg[:, 0].float())
+        err, ok = within(torch.stack(rows, 1), fwd[dtype], tol)
+        log(f"decode after prefill {dtype}: {steps} steps vs the train-mode "
+            f"forward, max |diff| {err:.4e} (tol {tol:.4g} abs + rel, the "
+            f"rule of tests/test_models_smoke.py): {ok}")
+        if not ok:
+            raise AssertionError(f"decode after prefill {dtype}: {err}")
+        del cache
+    c = cfg.scaled(dtype="bfloat16")
+    cache = _graft(c, runs[("bfloat16", "cuda")][1], batch, seq + steps)
+    serve_step = make_serve_step(c)
+    tok = runs[("bfloat16", "cuda")][0].argmax(-1).to(torch.int32)[:, None]
+    gen = []
+    for _ in range(steps):
+        tok, cache = serve_step(params, cache, tok)
+        gen.append(tok)
+        tok = tok[:, None]
+    gen = torch.stack(gen, 1).cpu()
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError(f"make_serve_step tokens out of range: {gen}")
+    log(f"make_serve_step: {steps} greedy steps after the prefill, row 0 "
+        f"tokens {gen[0].tolist()}, cache pos {cache['pos'].tolist()}")
+    del runs, cache, fwd
+    free_cuda()
+    return main_counts
+
+
+def phase_rwkv_prefill(cfg, params, batch: int = 2, seq: int = 2048):
+    """rwkv6-1.6b's prefill through the vector-decay scan vs the plain
+    version (one scan launch per layer)."""
+    rng = np.random.default_rng(SEED + 6)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq))).to(DEV)
+    runs = _prefill_runs(cfg, params, toks)
+    got = runs[("bfloat16", "cuda")][2]["linear_scan"]
+    if got != cfg.n_layers:
+        raise AssertionError(f"rwkv6 prefill: {got} scan launches")
+    _check_prefill(cfg.name, runs, 1e-3)
+    del runs
+    free_cuda()
+
+
+def phase_dense_serve(cfg, params, card: str, max_new: int = 8):
+    """ServeEngine(kv_store="dense") on zamba2-2.7b: 6 requests of 32-96
+    prompt tokens, 3 sharing a 32-token prefix (the first of them goes in
+    alone until its prefix is published, so the other two can hit it).
+    This path prefills token by token through decode mode, as the
+    reference's dense engine does: it launches neither new kernel."""
+    rng = np.random.default_rng(SEED + 5)
+    shared = rng.integers(1, cfg.vocab, 32).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab, n).tolist()
+               for n in (5, 20, 40)]
+    prompts += [rng.integers(1, cfg.vocab, n).tolist() for n in (32, 60, 96)]
+    eng = ServeEngine(cfg, params, kv_store="dense", device=DEV,
+                      smr="EpochPOP-pool", n_engines=2, prefix_cache=True,
+                      page_size=PAGE, num_pages=128, max_seq=128,
+                      max_batch=4)
+    pool = eng.pool
+    build.reset_launch_counts()
+    t0 = time.monotonic()
+    eng.start()
+    reqs = [eng.submit(prompts[0], max_new=max_new)]
+    while pool.prefix_entries == 0 and not reqs[0].done.is_set():
+        if time.monotonic() - t0 > 600:
+            raise AssertionError("the shared prefix was never published")
+        time.sleep(0.01)
+    reqs += [eng.submit(p, max_new=max_new) for p in prompts[1:]]
+    for r in reqs:
+        if not r.done.wait(timeout=900):
+            raise AssertionError(f"request {r.rid} did not finish")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    eng.stop()
+    launches = dict(build.launch_counts)
+    if eng.error is not None:
+        raise AssertionError(f"dense engine failed: {eng.error!r}")
+    for r in reqs:
+        if len(r.out) != max_new:
+            raise AssertionError(f"request {r.rid}: {len(r.out)} tokens")
+    hits = pool.stats.prefix_hits
+    pool.evict_prefixes(0)
+    pool.policy.flush()
+    checks = {"no leaks": pool.check_no_leaks(),
+              "freed > 0": pool.stats.freed > 0,
+              "prefix hits > 0": hits > 0}
+    for name, ok in checks.items():
+        log(f"  dense serve check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError(f"dense serve checks failed: {checks}")
+    tokens = sum(len(r.out) for r in reqs)
+    lat = eng.metrics.snapshot().get("tok_latency_s", {})
+    stats = eng.kv_copy_stats()
+    log(f"dense serve: {cfg.name}, {len(reqs)} requests, "
+        f"{sum(len(p) for p in prompts)} prompt tokens ({eng.prefill_tokens} "
+        f"prefilled token by token, {hits} prefix hits), {tokens} generated "
+        f"in {wall:.2f} s wall = {tokens / wall:.2f} generated tok/s; "
+        f"inter-token p50 {1e3 * lat.get('p50', float('nan')):.2f} ms p99 "
+        f"{1e3 * lat.get('p99', float('nan')):.2f} ms; cache bytes per "
+        f"request {stats['bytes_per_miss']:.0f}; use-after-free: none; "
+        f"launches {launches} (decode mode runs no kernel of this package); "
+        f"{card}")
+
+
+def phase_dense_profile(cfg, params, batch: int = 4, seq: int = 2048,
+                        top: int = 8):
+    """One bf16 zamba2 prefill through the kernels under torch.profiler,
+    after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 4)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq))).to(DEV)
+    step = make_prefill_step(cfg)
+    step(params, toks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, toks)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    log(f"dense profile: {cfg.name} prefill of {batch} x {seq} tokens")
+    report_profile(prof, wall, 1, cfg.n_layers, top)
+    free_cuda()
+
+
+# ----------------------------------------------------------------------------
+
+
+def _model(cfg, note: str):
+    log(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} dtype={cfg.dtype} ({note})")
+    t0 = time.monotonic()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"weights: {n_params} random bf16 parameters in "
+        f"{time.monotonic() - t0:.1f} s")
+    return params
 
 
 def main() -> int:
@@ -500,30 +1002,44 @@ def main() -> int:
     kres = phase_kernels()
 
     cfg = starcoder2_7b.CONFIG
-    log(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab} dtype={cfg.dtype} (no depth cut)")
-    t0 = time.monotonic()
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    params = init_params(cfg, gen, device=DEV)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"weights: {n_params} random bf16 parameters in "
-        f"{time.monotonic() - t0:.1f} s")
+    params = _model(cfg, "no depth cut")
     launches = phase_serve(cfg, params, card)
     phase_profile(cfg, params)
     phase_slice(cfg, params)
+    phase_prefill_kv(cfg, params)
+    del params
+    free_cuda()
+
+    cfg = zamba2_2p7b.CONFIG
+    params = _model(cfg, "no depth cut")
+    dense = phase_dense_prefill(cfg, params)
+    for name in ("flash_attention", "linear_scan"):
+        launches[name] = dense[name]
+    phase_dense_serve(cfg, params, card)
+    phase_dense_profile(cfg, params)
+    del params
+    free_cuda()
+
+    cfg = rwkv6_1p6b.CONFIG
+    params = _model(cfg, "no depth cut")
+    phase_rwkv_prefill(cfg, params)
+    del params
+    free_cuda()
 
     kernels = []
-    for name in ("paged_attention", "paged_scatter"):
+    for name in REPLACES:
         err_f32, t_f32 = kres[(name, torch.float32)]
         err_bf16, t_bf16 = kres[(name, torch.bfloat16)]
         if name == "paged_attention":
             ms, plain, bound, by = t_bf16["decode"]
             lib = None
-        else:
+        elif name == "paged_scatter":
             ms, plain, bound, lib = t_bf16
             by = "bytes"
+        elif name == "flash_attention":
+            ms, plain, bound, by, lib = t_bf16["zamba2 prefill"]
+        else:
+            ms, plain, bound, by, lib = t_bf16["mamba2"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

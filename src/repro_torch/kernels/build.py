@@ -9,6 +9,11 @@ the flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time, and nothing falls back: a missing
 ``nvcc`` or a failed compile raises.
+
+The wrappers share what sits around a launch: :func:`entry` types a
+library's C entry point once, :func:`count` adds a launch to
+:data:`launch_counts`, :func:`check` raises on an input the kernel does
+not take, and :func:`raise_on` raises on a failed launch.
 """
 
 from __future__ import annotations
@@ -25,12 +30,18 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("paged_attention", "paged_scatter")
+KERNELS = ("paged_attention", "paged_scatter", "flash_attention",
+           "linear_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.PyDLL] = {}
+_entries: Dict[str, object] = {}
+
+#: launches of each kernel since the last :func:`reset_launch_counts`
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -94,3 +105,40 @@ def load(name: str) -> ctypes.PyDLL:
             lib = ctypes.PyDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def entry(name: str, argtypes):
+    """``<name>_launch`` of kernel ``name``'s library, typed on first use.
+    Every entry point returns the ``cudaError_t`` of its launch."""
+    with _lock:
+        fn = _entries.get(name)
+        if fn is not None:
+            return fn
+    lib = load(name)
+    with _lock:
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+        return fn
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

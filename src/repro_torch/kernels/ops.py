@@ -5,10 +5,13 @@ Every op takes ``impl``:
   * ``"torch"`` -- the plain PyTorch version (``kernels/ref.py``), on any
     device.  The CPU path, and the yardstick the kernels are held to.
   * ``"cuda"``  -- the wrapper of the hand-written CUDA kernel
-    (``kernels/paged_attention.py``): the kernel for CUDA tensors (it
-    raises if the launch fails, never falls back), the plain version for
-    CPU tensors.
+    (``kernels/paged_attention.py``, ``flash_attention.py``,
+    ``linear_scan.py``): the kernel for CUDA tensors (it raises if the
+    launch fails, never falls back), the plain version for CPU tensors.
   * ``None``    -- ``"cuda"`` for CUDA tensors, ``"torch"`` otherwise.
+
+``decode_attention`` and ``linear_scan_step`` are plain PyTorch under
+every ``impl``: the reference has no Pallas kernel for them either.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 
@@ -50,3 +55,32 @@ def paged_scatter(k_pages, v_pages, blk, slot, k_vals, v_vals, *,
         return
     _ref.paged_scatter_ref(k_pages, v_pages, torch.as_tensor(blk),
                            torch.as_tensor(slot), k_vals, v_vals, layer=layer)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None, impl: Optional[str] = None):
+    if resolve_impl(impl, q.device) == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, window=0, softcap=0.0,
+                     scale=None, impl: Optional[str] = None):
+    return _ref.decode_attention_ref(q, k_cache, v_cache, kv_len,
+                                     window=window, softcap=softcap,
+                                     scale=scale)
+
+
+def linear_scan(q, k, v, log_decay, *, state=None, bonus=None, chunk=128,
+                impl: Optional[str] = None):
+    if resolve_impl(impl, q.device) == "cuda":
+        return _ls.linear_scan(q, k, v, log_decay, state=state, bonus=bonus,
+                               chunk=chunk)
+    return _ref.linear_scan_ref(q, k, v, log_decay, state=state, bonus=bonus,
+                                chunk=chunk)
+
+
+def linear_scan_step(q, k, v, log_decay, state, bonus=None):
+    return _ref.linear_scan_step(q, k, v, log_decay, state, bonus)

@@ -1,10 +1,14 @@
-"""Plain PyTorch versions of the paged-serving kernels.
+"""Plain PyTorch versions of the kernels, and the plain operations the
+model runs beside them.
 
 They are the arithmetic the CUDA kernels in ``csrc/`` must reproduce: the
 CPU path of :mod:`repro_torch.kernels.ops` runs them, the tests hold them
 against the reference package's Pallas kernels, and ``chip_smoke.py``
 holds each CUDA kernel against them on the card.
 
+* :func:`flash_attention_ref` -- double-chunked online-softmax attention
+  (causal, sliding window, logit softcap, GQA): the model's full-sequence
+  attention on the CPU and the flash kernel's yardstick.
 * :func:`decode_attention_ref` -- single-token attention against a
   (possibly partially filled) KV cache.
 * :func:`paged_attention_ref` -- decode attention against a paged block
@@ -12,20 +16,98 @@ holds each CUDA kernel against them on the card.
 * :func:`paged_scatter_ref` -- the token scatter
   ``pages[layer, blk[t], slot[t]] = vals[t]`` into the K and V pools, in
   place, for one layer or all.
+* :func:`linear_scan_ref` / :func:`linear_scan_exact` -- chunked gated
+  linear recurrences (Mamba2 scalar decay / RWKV6 vector decay): the
+  factored form the scan kernel implements, and the exact oracle.
+* :func:`linear_scan_step` -- one recurrent step (decode).
+
+Each follows the function of the same name in the reference package's
+``kernels/ref.py`` operation for operation, so the CPU path rounds where
+the reference's XLA path does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
 
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap) if cap else x
+
+
+def flash_attention_ref(
+    q: torch.Tensor,             # (B, Sq, H, D)
+    k: torch.Tensor,             # (B, Sk, Hkv, D)
+    v: torch.Tensor,             # (B, Sk, Hkv, Dv)
+    *,
+    causal: bool = True,
+    window: int = 0,             # 0 = unlimited; else sliding window size
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+    q_offset: int = 0,           # absolute position of q[0] (prefill continuation)
+    q_block: int = 512,
+    kv_block: int = 1024,
+) -> torch.Tensor:
+    """Blocks of ``q_block`` queries against every block of ``kv_block``
+    keys with an online softmax in f32; P is rounded to v's dtype before
+    the PV product; masked scores are -1e30 and ``l`` is floored at 1e-30.
+    Every kv block is visited, masked or not, as in the reference."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Sk)
+    pad_q = (-Sq) % q_block
+    pad_k = (-Sk) % kv_block
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    Sq_p, Sk_p = Sq + pad_q, Sk + pad_k
+    nq, nk = Sq_p // q_block, Sk_p // kv_block
+    dev = q.device
+
+    qr = q.reshape(B, nq, q_block, Hkv, G, D).float()
+    kr = k.reshape(B, nk, kv_block, Hkv, D).float()
+    vr = v.reshape(B, nk, kv_block, Hkv, Dv)
+    q_pos = torch.arange(Sq_p, device=dev).reshape(nq, q_block) + q_offset
+    k_pos = torch.arange(Sk_p, device=dev).reshape(nk, kv_block)
+
+    outs = []
+    for qi in range(nq):
+        qc, qpos = qr[:, qi], q_pos[qi]
+        m = torch.full((B, Hkv, G, q_block), NEG_INF, device=dev)
+        l = torch.zeros((B, Hkv, G, q_block), device=dev)
+        acc = torch.zeros((B, Hkv, G, q_block, Dv), device=dev)
+        for ki in range(nk):
+            kc, vc, kpos = kr[:, ki], vr[:, ki], k_pos[ki]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc) * scale
+            s = _softcap(s, softcap)
+            mask = (kpos[None, :] <= qpos[:, None]) if causal else (
+                kpos[None, :] < Sk).expand(q_block, kv_block)
+            if window:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            mask = mask & (kpos[None, :] < Sk)      # kv padding
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vc.dtype).float(), vc.float())
+            m = m_new
+        out = acc / l.clamp(min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))                # (B,Hkv,G,q_block,Dv)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5)
+    return out.reshape(B, Sq_p, H, Dv)[:, :Sq]
 
 
 def decode_attention_ref(
@@ -120,3 +202,153 @@ def paged_scatter_ref(
             pages[:, blk, slot] = vals
         else:
             pages[layer, blk, slot] = vals
+
+
+# ----------------------------------------------------------------------------
+# gated linear recurrences (Mamba2 / RWKV6)
+# ----------------------------------------------------------------------------
+
+
+def linear_scan_step(
+    q: torch.Tensor,             # (B, H, K)
+    k: torch.Tensor,             # (B, H, K)
+    v: torch.Tensor,             # (B, H, Vd)
+    log_decay: torch.Tensor,     # (B, H) or (B, H, K)
+    state: torch.Tensor,         # (B, H, K, Vd)
+    bonus: Optional[torch.Tensor] = None,   # (H, K) rwkv6 'u'
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single recurrent step (decode).  The output reads the state rounded
+    to q's dtype, as in the reference."""
+    a = torch.exp(log_decay.float())
+    if a.dim() == 2:
+        a = a[..., None]
+    kv = k[..., :, None] * v[..., None, :]           # (B,H,K,Vd)
+    if bonus is not None:
+        cur = state + bonus[None, :, :, None] * kv
+        out = torch.einsum("bhk,bhkv->bhv", q, cur.to(q.dtype))
+        new_state = a[..., None] * state + kv
+    else:
+        new_state = a[..., None] * state + kv
+        out = torch.einsum("bhk,bhkv->bhv", q, new_state.to(q.dtype))
+    return out, new_state
+
+
+def _scan_chunks(q, k, v, log_decay, state, chunk):
+    """The padded, chunked f32 views both scans share: ``(n, B, L, H, *)``
+    stacks of q, k, v and the log decay (``Kd`` = 1 for scalar decay)."""
+    B, S, H, K = q.shape
+    Vd = v.shape[-1]
+    ld = log_decay.float()
+    if ld.dim() == 3:
+        ld = ld[..., None]
+    pad = (-S) % chunk
+    if pad:
+        q, k, v, ld = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v, ld))
+    n = (S + pad) // chunk
+
+    def chunks(t):
+        return t.reshape(B, n, chunk, H, t.shape[-1]).float().transpose(0, 1)
+
+    if state is None:
+        state = torch.zeros((B, H, K, Vd), device=q.device)
+    return chunks(q), chunks(k), chunks(v), chunks(ld), state, n
+
+
+def linear_scan_exact(q, k, v, log_decay, *, state=None, bonus=None,
+                      chunk: int = 32):
+    """Exact chunked scan; vector decay handled with an (L, L, K) broadcast.
+
+    The numerical oracle for both the model path and the kernel.
+    q,k: (B,S,H,K); v: (B,S,H,Vd); log_decay: (B,S,H) or (B,S,H,K).
+
+    Semantics:
+      mamba2 (bonus=None):  S_t = a_t S_{t-1} + k_t v_t ; o_t = q_t . S_t
+      rwkv6  (bonus=u):     S_t = w_t S_{t-1} + k_t v_t ; o_t = q_t . (S_{t-1} + u k_t v_t)
+    Returns (out (B,S,H,Vd), final_state (B,H,K,Vd)).
+    """
+    B, S, H, K = q.shape
+    Vd = v.shape[-1]
+    vec = log_decay.dim() == 4
+    qs, ks, vs, lds, st, n = _scan_chunks(q, k, v, log_decay, state, chunk)
+    idx = torch.arange(chunk, device=q.device)
+    strict_lower = idx[:, None] > idx[None, :]
+    eye = torch.eye(chunk, device=q.device)
+    rwkv = bonus is not None
+    ys = []
+    for c in range(n):
+        qc, kc, vc, ldc = qs[c], ks[c], vs[c], lds[c]   # (B,L,H,*)
+        cl = torch.cumsum(ldc, dim=1)                   # inclusive
+        clq = cl - ldc if rwkv else cl                  # q-side: exclusive for rwkv
+        dd = clq[:, :, None] - cl[:, None, :]           # (B,L,L,H,Kd)
+        wmask = strict_lower[None, :, :, None, None]
+        w = torch.exp(torch.where(wmask, dd, torch.zeros_like(dd))) * wmask
+        if w.shape[-1] == 1:                            # scalar decay
+            qk = torch.einsum("blhk,bmhk->bhlm", qc, kc)
+            scores = qk * w[..., 0].permute(0, 3, 1, 2)
+        else:
+            scores = torch.einsum("blhk,bmhk,blmhk->bhlm", qc, kc, w)
+        if rwkv:
+            dsc = torch.einsum("blhk,blhk,hk->bhl", qc, kc, bonus.float())
+        else:
+            dsc = torch.einsum("blhk,blhk->bhl", qc, kc)
+        scores = scores + dsc[:, :, :, None] * eye[None, None]
+        y_intra = torch.einsum("bhlm,bmhv->blhv", scores, vc)
+        q_eff = qc * torch.exp(clq).expand(qc.shape)
+        y_inter = torch.einsum("blhk,bhkv->blhv", q_eff, st)
+        total = torch.exp(cl[:, -1])                    # (B,H,Kd)
+        rem = torch.exp(cl[:, -1:] - cl)                # decay j -> chunk end
+        k_rem = kc * rem.expand(kc.shape)
+        if vec:
+            st_new = st * total[..., None]
+        else:
+            st_new = st * total[..., 0][:, :, None, None]
+        st = st_new + torch.einsum("blhk,blhv->bhkv", k_rem, vc)
+        ys.append(y_intra + y_inter)
+    out = torch.stack(ys, 1).reshape(B, n * chunk, H, Vd)[:, :S]
+    return out.to(v.dtype), st
+
+
+def linear_scan_ref(q, k, v, log_decay, *, state=None, bonus=None,
+                    chunk: int = 128, clamp: float = 75.0):
+    """Factored chunked scan (what the kernel implements).
+
+    Scalar decay (mamba2): mathematically exact.  Vector decay (rwkv6):
+    factored form ``(q*exp(clq)) . (k*exp(-cl))`` with amplification clamped
+    at ``exp(clamp)`` -- matches the exact oracle to ~1e-3 for realistic
+    decays.
+    """
+    B, S, H, K = q.shape
+    Vd = v.shape[-1]
+    vec = log_decay.dim() == 4
+    qs, ks, vs, lds, st, n = _scan_chunks(q, k, v, log_decay, state, chunk)
+    idx = torch.arange(chunk, device=q.device)
+    strict_lower = (idx[:, None] > idx[None, :]).float()
+    eye = torch.eye(chunk, device=q.device)
+    rwkv = bonus is not None
+    ys = []
+    for c in range(n):
+        qc, kc, vc, ldc = qs[c], ks[c], vs[c], lds[c]
+        cl = torch.cumsum(ldc, dim=1)
+        clq = cl - ldc if rwkv else cl
+        q_eff = qc * torch.exp(clq).expand(qc.shape)
+        k_eff = kc * torch.exp(torch.clamp(-cl, max=clamp)).expand(kc.shape)
+        scores = torch.einsum("blhk,bmhk->bhlm", q_eff, k_eff)
+        scores = scores * strict_lower[None, None]
+        if rwkv:
+            dsc = torch.einsum("blhk,blhk,hk->bhl", qc, kc, bonus.float())
+        else:
+            dsc = torch.einsum("blhk,blhk->bhl", qc, kc)
+        scores = scores + dsc[:, :, :, None] * eye[None, None]
+        y = torch.einsum("bhlm,bmhv->blhv", scores, vc)
+        y = y + torch.einsum("blhk,bhkv->blhv", q_eff, st)
+        total = torch.exp(cl[:, -1])
+        rem = torch.exp(cl[:, -1:] - cl)
+        k_rem = kc * rem.expand(kc.shape)
+        if vec:
+            st_new = st * total[..., None]
+        else:
+            st_new = st * total[..., 0][:, :, None, None]
+        st = st_new + torch.einsum("blhk,blhv->bhkv", k_rem, vc)
+        ys.append(y)
+    out = torch.stack(ys, 1).reshape(B, n * chunk, H, Vd)[:, :S]
+    return out.to(v.dtype), st

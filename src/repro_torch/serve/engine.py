@@ -12,11 +12,12 @@ Three layers (the reference package's topology):
   through the pluggable ReclaimPolicy, so publish-on-ping passes fan out to
   all readers concurrently.
 
-This package serves the paged path: K/V in a shared
-:class:`~repro_torch.runtime.kv_store.PagedKVStore`, attention and page
-writes through the CUDA kernels of ``kernels/``.  It runs on ``cuda``
-unless the caller passes ``device=``; without CUDA and without a device it
-raises rather than carry on on the CPU.
+Both KV stores of the reference are served: ``"dense"`` (one private
+cache per request, decoded through ``apply_model``) and ``"paged"`` (K/V
+in a shared :class:`~repro_torch.runtime.kv_store.PagedKVStore`,
+attention and page writes through the CUDA kernels of ``kernels/``).  It
+runs on ``cuda`` unless the caller passes ``device=``; without CUDA and
+without a device it raises rather than carry on on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.model import apply_model
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.runtime.block_pool import BlockPool
 from repro_torch.runtime.kv_store import PagedKVStore
@@ -40,12 +42,13 @@ class ServeEngine:
     """Facade: Scheduler + N EngineWorkers + optional PrefillWorkers +
     Reclaimer over one BlockPool.
 
-    ``kv_store`` selects the KV storage layer.  ``"paged"`` stores K/V
-    physically in a shared :class:`~repro_torch.runtime.kv_store.
-    PagedKVStore` keyed by the pool's block ids and decodes through the
-    paged-attention kernel (GQA configs; see serve/paged_model.py).
-    ``"dense"`` (one private cache per request) comes with the ``models/``
-    slice of the port and raises :class:`NotImplementedError` until then.
+    ``kv_store`` selects the KV storage layer: ``"dense"`` keeps one
+    private decode cache of ``max_seq`` positions per request (any
+    architecture ``models/`` has), prefilled and decoded through
+    ``apply_model(mode="decode")``; ``"paged"`` stores K/V physically in a
+    shared :class:`~repro_torch.runtime.kv_store.PagedKVStore` keyed by the
+    pool's block ids and decodes through the paged-attention kernel (GQA
+    configs; see serve/paged_model.py).
     ``kv_storage`` picks where the pages live: ``"device"`` (the default:
     resident tensors updated in place by the scatter kernel, zero
     host->device bytes per steady-state decode step) or ``"host"`` (host
@@ -54,9 +57,7 @@ class ServeEngine:
     ``kernel_impl`` ("torch" | "cuda" | None) overrides the kernels' choice
     (None: the CUDA kernels on a CUDA device, plain PyTorch on the CPU).
     ``sim_backend``/``sim_costs`` configure simulator-backed SMR schemes,
-    which are ported in a later slice; ``max_seq`` sizes the dense path's
-    per-request cache and is unused until then (pages bound the paged
-    path).
+    which are ported in a later slice.
 
     ``prefill_workers``/``prefill_chunk`` configure the async prefill
     pipeline: N dedicated prefill threads (each its own SMR reader slot in
@@ -118,10 +119,6 @@ class ServeEngine:
         if kv_store not in ("dense", "paged"):
             raise ValueError(f"kv_store must be 'dense' or 'paged', "
                              f"got {kv_store!r}")
-        if kv_store == "dense":
-            raise NotImplementedError(
-                "kv_store='dense' (one private cache per request) comes with "
-                "the models/ slice of the port; use kv_store='paged'")
         if kv_storage not in ("host", "device"):
             raise ValueError(f"kv_storage must be 'host' or 'device', "
                              f"got {kv_storage!r}")
@@ -162,14 +159,24 @@ class ServeEngine:
         if trace is not None:
             pool.attach_tracer(trace)
         self.n_engines = n_engines
-        # ONE physical page store shared by every worker, registered as a
-        # pool block listener so frees poison pages and (re)allocations
-        # clear them -- under whichever SMR policy decides
-        from repro_torch.serve.paged_model import check_paged_support
-        check_paged_support(cfg)
-        self.kv_store = PagedKVStore(cfg, pool.num_blocks, page_size,
-                                     storage=kv_storage, device=self.device)
-        pool.add_block_listener(self.kv_store)
+        # paged KV mode: ONE physical page store shared by every worker,
+        # registered as a pool block listener so frees poison pages and
+        # (re)allocations clear them -- under whichever SMR policy decides
+        self.kv_store: Optional[PagedKVStore] = None
+        if kv_store == "paged":
+            from repro_torch.serve.paged_model import check_paged_support
+            check_paged_support(cfg)
+            self.kv_store = PagedKVStore(cfg, pool.num_blocks, page_size,
+                                         storage=kv_storage,
+                                         device=self.device)
+            pool.add_block_listener(self.kv_store)
+
+        # the dense path's decode, shared by every worker: it writes the
+        # request's own cache in place, so workers never share a tensor
+        def decode(p, c, t):
+            return apply_model(p, t, cfg=cfg, mode="decode", cache=c)
+
+        self._decode = decode
         # desched-stall fault injection (the load harness's "frequently
         # delayed threads" cell): afflicted decode workers sleep stall_s
         # every stall_every-th step MID-step, reader session held.  Default
@@ -179,10 +186,11 @@ class ServeEngine:
             stall_workers = (0,)
         stall_set = set(stall_workers or ())
         self.workers: List[EngineWorker] = [
-            EngineWorker(i, cfg, params, pool,
+            EngineWorker(i, cfg, params, pool, self._decode,
                          max_batch=max_batch, page_size=page_size,
-                         prefix_cache=prefix_cache,
+                         max_seq=max_seq, prefix_cache=prefix_cache,
                          kv_store=self.kv_store, kernel_impl=kernel_impl,
+                         device=self.device,
                          evict_policy=evict_policy,
                          prefill_chunk=prefill_chunk,
                          tracer=trace, metrics=self.metrics,
@@ -191,10 +199,11 @@ class ServeEngine:
             for i in range(n_engines)]
         # prefill workers take the engine ids right after the decode fleet
         self.prefill_workers: List[PrefillWorker] = [
-            PrefillWorker(n_engines + j, cfg, params, pool,
-                          page_size=page_size,
+            PrefillWorker(n_engines + j, cfg, params, pool, self._decode,
+                          page_size=page_size, max_seq=max_seq,
                           prefix_cache=prefix_cache, kv_store=self.kv_store,
-                          kernel_impl=kernel_impl, evict_policy=evict_policy,
+                          kernel_impl=kernel_impl, device=self.device,
+                          evict_policy=evict_policy,
                           prefill_chunk=prefill_chunk,
                           tracer=trace, metrics=self.metrics)
             for j in range(prefill_workers)]
@@ -272,9 +281,10 @@ class ServeEngine:
     def kv_copy_stats(self) -> dict:
         """Aggregate bytes-copied-per-request accounting across all pool
         actors (decode workers and prefill workers): how many KV bytes
-        admission wrote into the pages, split by prefix-cache outcome.  The
-        paged path's headline number is ``bytes_per_hit`` ~ 0 (shared pages
-        enter the block table, nothing is copied)."""
+        admission installed into per-request storage, split by prefix-cache
+        outcome.  The paged path's headline number is ``bytes_per_hit`` ~ 0
+        (shared pages enter the block table, nothing is copied); the dense
+        path pays a full cache per request."""
         actors = self.workers + self.prefill_workers
         hit_b = sum(w.kv_bytes_copied_hit for w in actors)
         miss_b = sum(w.kv_bytes_copied_miss for w in actors)
@@ -282,8 +292,8 @@ class ServeEngine:
         misses = sum(w.admitted_miss for w in actors)
         st = self.kv_store
         return {
-            "kv_store": "paged",
-            "kv_storage": st.storage,
+            "kv_store": "paged" if st is not None else "dense",
+            "kv_storage": st.storage if st is not None else None,
             "admitted_hit": hits, "admitted_miss": misses,
             "bytes_hit": hit_b, "bytes_miss": miss_b,
             "bytes_per_hit": hit_b / max(hits, 1),
@@ -291,7 +301,8 @@ class ServeEngine:
             # host<->device KV traffic through the page store: the device-
             # residency headline (device storage: 0 h2d in steady-state
             # decode; host storage: O(pool * layers) per step)
-            "bytes_h2d": st.bytes_h2d,
-            "bytes_d2h": st.bytes_d2h,
-            "bytes_h2d_per_step": st.bytes_h2d / max(self.steps, 1),
+            "bytes_h2d": st.bytes_h2d if st is not None else None,
+            "bytes_d2h": st.bytes_d2h if st is not None else None,
+            "bytes_h2d_per_step": (st.bytes_h2d / max(self.steps, 1)
+                                   if st is not None else None),
         }

@@ -12,12 +12,16 @@ Scope: the GQA transformer family -- every layer ``mixer="attn"`` with
 ``attn_kind="full"`` and a dense MLP (qk_norm / post_norms / softcaps /
 partial rotary / tied embeddings honored).
 :func:`~repro_torch.models.model.check_paged_support` rejects the rest.
+
+:func:`prefill_kv` is the other way into the pages: the dense
+full-sequence forward (flash attention) over a whole prompt, whose K/V one
+``write_prefill`` scatters into the pages.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,11 +31,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_attention import to_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_norm, rope_tables, rotate, torch_dtype
-from repro_torch.models.model import check_paged_support
-from repro_torch.runtime.kv_store import PagedKVStore
+from repro_torch.models.model import (apply_model, check_paged_support,
+                                      layer_params)
+from repro_torch.runtime.kv_store import PagedKVStore, kv_layer_order
 
-__all__ = ["check_paged_support", "prefill_kv_chunked", "prefill_chunk_step",
-           "paged_decode_step", "paged_impl"]
+__all__ = ["check_paged_support", "prefill_kv", "prefill_kv_chunked",
+           "prefill_chunk_step", "paged_decode_step", "paged_impl"]
 
 
 def paged_impl(device) -> str:
@@ -40,12 +45,25 @@ def paged_impl(device) -> str:
     return kops.resolve_impl(None, device)
 
 
-def _layer_params(params, gi: int, pi: int, rep: int):
-    """One physical layer's weights: views into the stacked group params."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[rep]
-    return take(params["groups"][f"g{gi}"][f"p{pi}"])
+def prefill_kv(params, cfg: ArchConfig,
+               tokens: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill a prompt with the full-sequence forward (flash attention
+    over the whole prompt) and return its per-layer post-rope K/V as
+    ``(L, S, Hkv, hd)`` tensors in the cache's dtype, in
+    :func:`~repro_torch.runtime.kv_store.kv_layer_order` order -- ready for
+    :meth:`PagedKVStore.write_prefill` with ``layer=None``.
+
+    Prefill stays dense on purpose (one batched pass beats S single-token
+    steps); only the *storage* of its result is paged."""
+    toks = to_device(np.asarray([list(tokens)], np.int64),
+                     params["embed"].device)
+    _, cache, _ = apply_model(params, toks, cfg=cfg, mode="prefill")
+    ks, vs = [], []
+    for gi, pi, rep in kv_layer_order(cfg):
+        lc = cache["groups"][f"g{gi}"][f"p{pi}"]
+        ks.append(lc["k"][rep, 0])                     # (S, Hkv, hd)
+        vs.append(lc["v"][rep, 0])
+    return torch.stack(ks), torch.stack(vs)
 
 
 def _paged_forward(params, cfg: ArchConfig, store: PagedKVStore,
@@ -80,7 +98,7 @@ def _paged_forward(params, cfg: ArchConfig, store: PagedKVStore,
     rope = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_pct, dt)
 
     for li, (gi, pi, rep) in enumerate(store.layer_order):
-        lp = _layer_params(params, gi, pi, rep)
+        lp = layer_params(params["groups"][f"g{gi}"][f"p{pi}"], rep)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         ap = lp["attn"]
         # plain 2-D products on views of the (D, heads, hd) weights:

@@ -35,17 +35,23 @@ blocks are *released*, not retired; the pool retires them only when the
 last holder (cache entry included) lets go, and the SMR policy decides when
 recycling is actually safe.
 
-KV storage is the physically paged path: K/V live ONLY in the shared
-:class:`~repro_torch.runtime.kv_store.PagedKVStore` pages keyed by the
-pool's block ids, and a decode step batches every running request into one
-``(table, lens, q)`` launch of the paged-attention kernel per layer
-(serve/paged_model.py).  A prefix hit installs *no copies at all*: the
-shared physical pages enter the request's block table directly, and the
-prefix-cache payload is just the prefilled length.  The pages are
-device-resident by default (``kv_storage="device"``), so a steady-state
-decode step moves zero host->device KV bytes.  The dense per-request cache
-path of the reference package comes with the ``models/`` slice of the
-port; until then ``kv_store=None`` raises.
+KV storage is selectable per engine (``kv_store``):
+
+* **dense** -- one private decode cache per request (``init_cache`` of
+  ``max_seq`` positions), prefilled token by token and decoded through
+  ``apply_model(mode="decode")``, which writes the cache in place.  A
+  prefix hit installs a copy of the cached KV *snapshot* (a whole-cache
+  payload); the snapshot is itself a copy taken at publication, so no
+  later in-place decode write of one request reaches another's cache.
+* **paged** -- K/V live ONLY in the shared
+  :class:`~repro_torch.runtime.kv_store.PagedKVStore` pages keyed by the
+  pool's block ids, and a decode step batches every running request into
+  one ``(table, lens, q)`` launch of the paged-attention kernel per layer
+  (serve/paged_model.py).  A prefix hit installs *no copies at all*: the
+  shared physical pages enter the request's block table directly, and the
+  prefix-cache payload is just the prefilled length.  The pages are
+  device-resident by default (``kv_storage="device"``), so a steady-state
+  decode step moves zero host->device KV bytes.
 
 GPU ordering is an SMR safety rule here.  Every page read, write and fill
 is issued on the one current CUDA stream (no side streams, no CUDA
@@ -65,8 +71,11 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.kernels.paged_attention import to_device
+from repro_torch.models.model import init_cache
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.runtime.block_pool import BlockPool, OutOfBlocks, StaleHandoff
 from repro_torch.runtime.kv_store import PagedKVStore
@@ -81,15 +90,17 @@ class Request:
     blocks: List[int] = field(default_factory=list)         # private
     shared_blocks: List[int] = field(default_factory=list)  # prefix-shared
     # prefill pipeline state: how many prompt tokens have materialized KV
-    # (pages), whether admission was a prefix-cache hit
+    # (pages or dense cache), whether admission was a prefix-cache hit
     # (the bytes-copied classification), how many prefix tokens are
     # already published to the cache (hit_len -- also advanced when WE
     # publish, so it cannot double-insert), which engine id currently
-    # owns the blocks (handoff transfers via BlockPool.adopt)
+    # owns the blocks (handoff transfers via BlockPool.adopt), and --
+    # dense mode only -- the cache being built (the handoff payload)
     prefilled: int = 0
     cache_hit: bool = False
     hit_len: int = 0
     owner: Optional[int] = None
+    cache: Optional[dict] = None
     # scheduling state: absolute monotonic deadline (None = best-effort,
     # sorts last under the deadline policy) and how often the scheduler
     # preempted/migrated this request (observability + test oracles)
@@ -112,16 +123,31 @@ class Request:
         return self.shared_blocks + self.blocks
 
     def reset_admission(self) -> None:
-        """Forget everything admission built (blocks, prefix hit, prefill
-        progress) so the request can be re-admitted from
+        """Forget everything admission built (blocks, prefix hit, dense
+        cache, prefill progress) so the request can be re-admitted from
         scratch.  The one caller is stale-handoff recovery: the pool
         refused an adopt because the source engine crashed and its blocks
         were already recovered, so this request's references to them are
         dangling by definition -- dropping them leaks nothing."""
         self.blocks, self.shared_blocks = [], []
-        self.owner = None
+        self.owner, self.cache = None, None
         self.prefilled = self.hit_len = 0
         self.cache_hit = False
+
+
+def clone_cache(tree):
+    """A copy of a dense decode cache that shares no storage with it."""
+    if isinstance(tree, dict):
+        return {k: clone_cache(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _cache_leaves(v)
+    else:
+        yield tree
 
 
 def finalize_request(pool: Optional[BlockPool], r: Request,
@@ -158,11 +184,11 @@ class _PoolActor:
     identical whether it runs in the dedicated prefill stage or inline at
     decode admission."""
 
-    def __init__(self, engine_id: int, cfg, params, pool: BlockPool,
-                 *, page_size: int = 16,
+    def __init__(self, engine_id: int, cfg, params, pool: BlockPool, decode,
+                 *, page_size: int = 16, max_seq: int = 256,
                  prefix_cache: bool = False,
                  kv_store: Optional[PagedKVStore] = None,
-                 kernel_impl: Optional[str] = None,
+                 kernel_impl: Optional[str] = None, device=None,
                  evict_policy: str = "lru", prefill_chunk: int = 16,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None):
@@ -171,30 +197,34 @@ class _PoolActor:
         self.params = params
         self.pool = pool
         self.page = page_size
+        self.max_seq = max_seq
         self.prefix_cache = prefix_cache
         self.evict_policy = evict_policy
         self.prefill_chunk = prefill_chunk
         self.tracer = tracer
         self.metrics = metrics
-        if kv_store is None:
-            raise NotImplementedError(
-                "dense KV storage (one private cache per request) comes with "
-                "the models/ slice of the port; pass a PagedKVStore")
+        self._decode = decode
+        # paged KV mode: physical pages + paged kernels instead of dense
+        # per-request caches (None = dense)
         self.kv_store = kv_store
-        if kernel_impl is None:
+        self.device = (kv_store.device if kv_store is not None else
+                       torch.device(device if device is not None else "cuda"))
+        if kv_store is not None and kernel_impl is None:
             from repro_torch.serve.paged_model import paged_impl
             kernel_impl = paged_impl(kv_store.device)
         self.kernel_impl = kernel_impl
         self._stop = threading.Event()
         self.prefill_tokens = 0
         self.prefill_tokens_skipped = 0
-        # bytes of KV written into the pages at admission, split by
-        # prefix-cache outcome (the benchmark's bytes-copied-per-request
-        # axis): only freshly written pages count
+        # bytes of KV installed into per-request private storage at
+        # admission, split by prefix-cache outcome (the benchmark's
+        # bytes-copied-per-request axis); dense counts the request's whole
+        # materialized cache, paged counts only freshly written pages
         self.kv_bytes_copied_hit = 0
         self.kv_bytes_copied_miss = 0
         self.admitted_hit = 0
         self.admitted_miss = 0
+        self._dense_cache_bytes: Optional[int] = None
         # voluntary chunk-level preemption: when set (by the scheduler, on
         # prefill workers ONLY -- an inline decode admission has no shared
         # queue to yield back to), consulted at every chunk boundary; a
@@ -212,20 +242,28 @@ class _PoolActor:
 
     def _lookup_prefix(self, r: Request):
         """Longest cached page-aligned prefix of r.prompt; returns
-        (shared_blocks, prefilled_len).  One logical lookup = one hit or one
-        miss in the stats, however many lengths it probes.  The payload of
-        an entry is only ``plen``: the physical pages ARE the KV, already
-        named by the entry's block ids."""
+        (shared_blocks, cache_snapshot, prefilled_len).  One logical lookup
+        = one hit or one miss in the stats, however many lengths it probes.
+
+        Payload shape differs by KV mode: dense entries carry a whole KV
+        snapshot ``(cache, plen)``, handed out as a COPY (the request's
+        decode writes its cache in place); paged entries carry only
+        ``plen`` -- the physical pages ARE the KV, already named by the
+        entry's block ids."""
         n_full = len(r.prompt) // self.page
         for k in range(n_full, 0, -1):
             hit = self.pool.acquire_prefix(
                 self.engine_id, self._prefix_key(r.prompt[:k * self.page]),
                 count_miss=False)
             if hit is not None:
-                return hit
+                blocks, payload = hit
+                if self.kv_store is not None:
+                    return blocks, None, payload
+                cache, plen = payload
+                return blocks, clone_cache(cache), plen
         if n_full:
             self.pool.count_prefix_miss()
-        return [], 0
+        return [], None, 0
 
     def _allocate(self, n_blocks: int) -> List[int]:
         """Allocate with pressure fallbacks: reclaim, then (when the prefix
@@ -256,14 +294,15 @@ class _PoolActor:
         raise AssertionError("unreachable")
 
     def _admit_blocks(self, r: Request) -> bool:
-        """First-touch admission: prefix lookup + block allocation.  Returns
-        False -- with the request rolled back untouched -- when the pool is
-        out of blocks.  On success the caller's engine owns the request's
-        blocks (``r.owner``) and ``r.prefilled`` reflects the prefix hit."""
+        """First-touch admission: prefix lookup + block allocation (and, in
+        dense mode, the private cache install).  Returns False -- with the
+        request rolled back untouched -- when the pool is out of blocks.
+        On success the caller's engine owns the request's blocks
+        (``r.owner``) and ``r.prefilled`` reflects the prefix hit."""
         shared: List[int] = []
-        plen = 0
+        cache, plen = None, 0
         if self.prefix_cache:
-            shared, plen = self._lookup_prefix(r)
+            shared, cache, plen = self._lookup_prefix(r)
         n_total = (len(r.prompt) + r.max_new + self.page - 1) // self.page
         try:
             r.blocks = self._allocate(n_total - len(shared))
@@ -281,6 +320,21 @@ class _PoolActor:
             self.admitted_hit += 1
         else:
             self.admitted_miss += 1
+        if self.kv_store is None:
+            # the request's KV is a full private cache either way: a hit
+            # merely seeds it from (a copy of) the snapshot; count the
+            # install bytes here, where the cache is born
+            if cache is None:
+                cache = init_cache(self.cfg, 1, self.max_seq, self.cfg.dtype,
+                                   device=self.device)
+            r.cache = cache
+            if self._dense_cache_bytes is None:
+                self._dense_cache_bytes = sum(
+                    t.numel() * t.element_size() for t in _cache_leaves(cache))
+            if plen:
+                self.kv_bytes_copied_hit += self._dense_cache_bytes
+            else:
+                self.kv_bytes_copied_miss += self._dense_cache_bytes
         return True
 
     def _adopt(self, r: Request) -> None:
@@ -372,7 +426,9 @@ class _PoolActor:
         if r.prefilled >= len(r.prompt):
             self._publish_prefix(r)          # full-hit: nothing to prefill
             return True
-        return self._prefill_paged(r)
+        if self.kv_store is not None:
+            return self._prefill_paged(r)
+        return self._prefill_dense(r)
 
     def _publish_prefix(self, r: Request) -> None:
         """Insert the full page-aligned prompt prefix into the pool's cache
@@ -384,7 +440,11 @@ class _PoolActor:
         if (not self.prefix_cache or not n_full or r.hit_len >= boundary
                 or r.prefilled < boundary):
             return
-        self._insert_prefix(r, n_full, payload=boundary)
+        # dense: a snapshot that the request's later in-place decode writes
+        # cannot reach
+        payload = boundary if self.kv_store is not None else (
+            clone_cache(r.cache), boundary)
+        self._insert_prefix(r, n_full, payload=payload)
         r.hit_len = boundary
 
     def _prefill_paged(self, r: Request) -> bool:
@@ -434,14 +494,45 @@ class _PoolActor:
                 return False
         return True
 
+    def _prefill_dense(self, r: Request) -> bool:
+        """Dense prefill of the uncached remainder, token by token (the
+        dense decode forward is single-token): the safepoint cadence is one
+        token, strictly tighter than the chunk bound."""
+        start = r.prefilled
+        t0 = time.monotonic()
+        for t in range(r.prefilled, len(r.prompt)):
+            self.pool.safepoint(self.engine_id)
+            if self._stop.is_set():
+                return False
+            # voluntary preemption (prefill workers only); the ``t > start``
+            # guard guarantees at least one token of progress per pickup
+            if (self.preempt_check is not None and t > start
+                    and self.preempt_check(r)):
+                self._note_preempt(r)
+                return False
+            tok = to_device(np.asarray([[r.prompt[t]]], np.int64),
+                            self.device)
+            _, r.cache, _ = self._decode(self.params, r.cache, tok)
+            self.prefill_tokens += 1
+            r.prefilled = t + 1
+            self._publish_prefix(r)
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.complete("prefill_dense", tr.wall_ts(t0),
+                        (time.monotonic() - t0) * 1e6, cat="serve",
+                        args={"rid": r.rid, "start": start,
+                              "end": r.prefilled})
+        return True
+
     def _finalize(self, r: Request) -> None:
         """Fail/stop-path completion (see :func:`finalize_request`)."""
         finalize_request(self.pool, r, self.tracer)
 
     def _insert_prefix(self, r: Request, n_full: int, payload) -> None:
         """Publish the full page-aligned prompt prefix: blocks 0..n_full-1
-        of the request (cached-shared first, then private) with payload
-        ``plen`` -- the pages themselves are the KV."""
+        of the request (cached-shared first, then private) plus the KV
+        payload (dense: ``(snapshot, plen)``; paged: ``plen`` -- the pages
+        themselves are the KV)."""
         k = len(r.shared_blocks)
         converts = r.blocks[:n_full - k]
         prefix_blocks = r.shared_blocks + converts
@@ -477,24 +568,26 @@ class EngineWorker(_PoolActor):
     upstream it only ever installs ready pages; without them it runs the
     same chunked prefill inline."""
 
-    def __init__(self, engine_id: int, cfg, params, pool: BlockPool,
+    def __init__(self, engine_id: int, cfg, params, pool: BlockPool, decode,
                  *, max_batch: int = 8, page_size: int = 16,
-                 prefix_cache: bool = False,
+                 max_seq: int = 256, prefix_cache: bool = False,
                  kv_store: Optional[PagedKVStore] = None,
-                 kernel_impl: Optional[str] = None,
+                 kernel_impl: Optional[str] = None, device=None,
                  evict_policy: str = "lru", prefill_chunk: int = 16,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  stall_every: int = 0, stall_s: float = 0.0):
-        super().__init__(engine_id, cfg, params, pool,
-                         page_size=page_size,
+        super().__init__(engine_id, cfg, params, pool, decode,
+                         page_size=page_size, max_seq=max_seq,
                          prefix_cache=prefix_cache, kv_store=kv_store,
-                         kernel_impl=kernel_impl, evict_policy=evict_policy,
+                         kernel_impl=kernel_impl, device=device,
+                         evict_policy=evict_policy,
                          prefill_chunk=prefill_chunk, tracer=tracer,
                          metrics=metrics)
         self.max_batch = max_batch
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self.running: Dict[int, Request] = {}
+        self._caches: Dict[int, dict] = {}
         self.max_abs_logit = 0.0          # largest |logit| decoded so far
         self.steps = 0
         # fault injection: every Nth decode step, sleep mid-step for
@@ -568,6 +661,9 @@ class EngineWorker(_PoolActor):
                 # waiter released -- instead of stranding it
                 self._finalize(r)
                 return
+            if self.kv_store is None:
+                self._caches[r.rid] = r.cache
+                r.cache = None
             self.running[r.rid] = r
 
     # -- decode step (POP reader) --
@@ -595,9 +691,13 @@ class EngineWorker(_PoolActor):
                 tr.complete("desched_stall", tr.wall_ts(t0),
                             (time.monotonic() - t0) * 1e6, cat="fault",
                             args={"engine": self.engine_id})
-        finished = self._step_paged()
+        if self.kv_store is not None:
+            finished = self._step_paged()
+        else:
+            finished = self._step_dense()
         for rid in finished:
             r = self.running.pop(rid)
+            self._caches.pop(rid, None)
             self.pool.retire(self.engine_id, r.blocks)      # -> SMR
             if r.shared_blocks:
                 self.pool.release_shared(self.engine_id, r.shared_blocks)
@@ -610,6 +710,23 @@ class EngineWorker(_PoolActor):
             tr.complete("decode_step", tr.wall_ts(t_step),
                         (time.monotonic() - t_step) * 1e6, cat="serve",
                         args={"batch": batch, "finished": len(finished)})
+
+    def _step_dense(self) -> List[int]:
+        """Per-request decode against private dense caches (written in
+        place).  The argmax reaches the host before the next request's
+        step and before ``end_step``."""
+        finished = []
+        for rid, r in list(self.running.items()):
+            self.pool.touch(self.engine_id, r.all_blocks)   # UAF tripwire
+            last = r.out[-1] if r.out else r.prompt[-1]
+            tok = to_device(np.asarray([[last]], np.int64), self.device)
+            logits, self._caches[rid], _ = self._decode(
+                self.params, self._caches[rid], tok)
+            r.out.append(int(logits[0, -1].argmax()))
+            self._note_token(r, time.monotonic())
+            if len(r.out) >= r.max_new:
+                finished.append(rid)
+        return finished
 
     def _step_paged(self) -> List[int]:
         """ONE batched (table, lens, q) decode through the paged kernel:
@@ -679,8 +796,9 @@ class PrefillWorker(_PoolActor):
     whoever picks it up adopts the blocks and resumes from ``r.prefilled``.
     """
 
-    def __init__(self, engine_id: int, cfg, params, pool: BlockPool, **kw):
-        super().__init__(engine_id, cfg, params, pool, **kw)
+    def __init__(self, engine_id: int, cfg, params, pool: BlockPool, decode,
+                 **kw):
+        super().__init__(engine_id, cfg, params, pool, decode, **kw)
         self._scheduler = None            # bound by Scheduler.__init__
         self.requests = 0                 # completed prefills
 

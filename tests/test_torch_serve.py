@@ -19,6 +19,7 @@ from repro.models.model import init_params as j_init
 from repro.serve.engine import ServeEngine as JEngine
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.base import ArchConfig, dense_stack
+from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.sim.engine import UseAfterFree
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import ServeEngine
@@ -137,10 +138,13 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_and_name_their_slice():
+    for arch, slice_ in (("olmoe_1b_7b", "MoE slice"),
+                         ("deepseek_v3_671b", "MLA slice"),
+                         ("whisper_small", "encoder slice")):
+        with pytest.raises(NotImplementedError, match=slice_):
+            init_params(get_smoke_config(arch),
+                        torch.Generator().manual_seed(0), device="cpu")
     params = init_params(CFG, torch.Generator().manual_seed(0), device="cpu")
-    kw = dict(ENGINE_KW, kv_store="dense")
-    with pytest.raises(NotImplementedError, match="models/"):
-        ServeEngine(CFG, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="later slice"):
         ServeEngine(CFG, params, device="cpu", smr="HazardPtrPOP",
                     **ENGINE_KW)
