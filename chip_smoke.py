@@ -13,14 +13,18 @@ Phases (any failure raises and exits non-zero; none is caught):
 1. card    -- name and power limit from nvidia-smi; TF32 off for matmuls
               and cuDNN, so float32 means float32.
 2. build   -- nvcc builds every kernel of ``src/repro_torch/kernels/csrc``,
-              one process per source, all at once.
+              one process per source, all at once; ptxas's registers and
+              spills of each flash instantiation.
 3. kernels -- each kernel against its plain version at its main path's
               shapes, bf16 and f32, elementwise |a - b| <= tol + tol |b|:
               paged attention (H=36, Hkv=4, D=128, page=16) and flash
               attention (zamba2's prefill B=4, S=2048, H=Hkv=32, D=80,
               causal; a gemma2 local layer B=1, S=8192, H=32, Hkv=16,
-              D=128, window 4096, softcap 50) within 2e-5 (f32) / 2e-2
-              (bf16); the scatter bit-exact; the linear scan (mamba2 B=4,
+              D=128, window 4096, softcap 50; and the small edge cases of
+              ``FLASH_EDGE_CASES``) within 2e-5 (f32) / 2e-2 (bf16); the
+              scatter bit-exact through numpy indices and through a
+              prepared index, and timed both ways beside two index_put_
+              calls; the linear scan (mamba2 B=4,
               S=2048, H=80, K=Vd=64, scalar decay, chunk 128; rwkv6 B=4,
               S=2048, H=32, K=Vd=64, vector decay + bonus, chunk 32) within
               2e-4 / 5e-2, and in f32 against the exact oracle at S=512.
@@ -33,7 +37,8 @@ Phases (any failure raises and exits non-zero; none is caught):
               frees, 0 host->device KV bytes per decode step, both kernels
               launched, finite logits below the poison scale.
    profile -- the same traffic under torch.profiler: device idle share,
-              launches per forward, the kernels that take the time.
+              kernel launches and copies per forward, the kernels that
+              take the time.
 5. slice   -- chunked prefill + decode steps of one prompt through the
               kernels vs through the plain versions, same weights, on the
               card: logits within 5e-2 absolute + 5e-2 relative in bf16,
@@ -61,6 +66,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -175,6 +181,16 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     log(f"build: {', '.join(build.KERNELS)} in {build.build_all():.1f} s")
+    # ptxas -v of the flash kernel's instantiations: registers and spills
+    name = None
+    for line in build.build_logs.get("flash_attention", "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_[a-z0-9]+_kernel)((?:I?L[ib]\d+E)*)", line)
+            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else []
+            name = None if m is None else m.group(1) + (
+                f"<{','.join(args)}>" if args else "")
+        elif name and ("registers" in line or "spill" in line):
+            log(f"  ptxas {name}: {line.split('info    :')[-1].strip()}")
 
 
 # ----------------------------------------------------------------------------
@@ -294,11 +310,16 @@ def check_attention(rng, dtype):
 
 
 def check_scatter(rng, dtype, L=32):
-    """Per-layer and all-layer writes, bit-exact against index_put_."""
+    """Per-layer and all-layer writes, through numpy indices and through a
+    prepared index, bit-exact against index_put_; then the main path's
+    per-layer decode write timed three ways: numpy indices (index built and
+    uploaded per call), a prepared index (built once, as a forward does),
+    and two index_put_ calls with device indices."""
     shape = (L, POOL_PAGES, PAGE, HKV, D)
     kp = torch.zeros(shape, dtype=dtype, device=DEV)
     vp = torch.zeros(shape, dtype=dtype, device=DEV)
     kr, vr = kp.clone(), vp.clone()
+    pa.check_scatter_pools(kp, vp)
     T = 8
     blk = rng.choice(POOL_PAGES, T, replace=False).astype(np.int64)
     slot = rng.integers(0, PAGE, T).astype(np.int64)
@@ -318,15 +339,32 @@ def check_scatter(rng, dtype, L=32):
     pa.paged_scatter(kp, vp, blk2, slot, kvL, vvL, layer=None)
     kr[:, b2, st] = kvL
     vr[:, b2, st] = vvL
+    # the prepared index, reused as a forward reuses it for every layer
+    index = pa.scatter_index(blk, slot, num_blocks=POOL_PAGES, page=PAGE,
+                             device=DEV)
+    kv7, vv7 = vals(), vals()
+    for layer in (7, 9):
+        pa.paged_scatter_indexed(kp, vp, index, kv7, vv7, layer=layer)
+        kr[layer, bt, st] = kv7
+        vr[layer, bt, st] = vv7
+    index2 = pa.scatter_index(blk2, slot, num_blocks=POOL_PAGES, page=PAGE,
+                              device=DEV)
+    kvL, vvL = vals(L), vals(L)
+    pa.paged_scatter_indexed(kp, vp, index2, kvL, vvL, layer=None)
+    kr[:, b2, st] = kvL
+    vr[:, b2, st] = vvL
     torch.cuda.synchronize()
     if not (torch.equal(kp, kr) and torch.equal(vp, vr)):
         raise AssertionError(f"paged_scatter {dtype} differs from index_put_")
-    log(f"  paged_scatter {str(dtype)[6:]}: layer=5 and layer=None "
-        f"bit-exact vs index_put_")
+    log(f"  paged_scatter {str(dtype)[6:]}: numpy indices (layer=5, "
+        f"layer=None) and a prepared index (layers 7 and 9 from one index, "
+        f"layer=None) bit-exact vs index_put_")
 
     # time the main path's per-layer decode write (T=8 tokens, K and V)
-    ms = cuda_ms(lambda: pa.paged_scatter(kp, vp, blk, slot, kv1, vv1,
-                                          layer=5))
+    numpy_ms = cuda_ms(lambda: pa.paged_scatter(kp, vp, blk, slot, kv1, vv1,
+                                                layer=5))
+    ms = cuda_ms(lambda: pa.paged_scatter_indexed(kp, vp, index, kv1, vv1,
+                                                  layer=5))
     plain = cuda_ms(lambda: ref.paged_scatter_ref(kp, vp, bt, st, kv1, vv1,
                                                   layer=5))
 
@@ -337,9 +375,10 @@ def check_scatter(rng, dtype, L=32):
     lib = cuda_ms(library)
     bound = (2 * 2 * T * HKV * D * kp.element_size() + 2 * T * 4) \
         / HBM_BYTES_PER_S * 1e3
-    log(f"  paged_scatter {str(dtype)[6:]} T={T} one layer: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, index_put_ {lib:.4f} ms, "
-        f"bound {bound:.6f} ms")
+    log(f"  paged_scatter {str(dtype)[6:]} T={T} one layer: prepared index "
+        f"{ms:.4f} ms, numpy indices {numpy_ms:.4f} ms, plain {plain:.4f} "
+        f"ms, index_put_ x2 {lib:.4f} ms, bound {bound:.6f} ms; prepared "
+        f"no slower than index_put_ x2: {ms <= lib}")
     del kp, vp, kr, vr
     torch.cuda.empty_cache()
     return 0.0, (ms, plain, bound, lib)
@@ -350,6 +389,25 @@ FLASH_SHAPES = {
     "zamba2 prefill": (4, 2048, 32, 32, 80, 0, 0.0),
     "gemma2 local": (1, 8192, 32, 16, 128, 4096, 50.0),
 }
+# (B, Sq, Sk, H, Hkv, D, Dv, causal, window, softcap): the flash kernel's
+# edges, the cases of tests/test_torch_dense_kernels.py's card test (this
+# machine has no JAX to run that file) -- head dims 1..256 (16-byte copies
+# or element copies, padding to 16), G in {1, 2, 3, 4, 9}, S off the 64-key
+# tile, a window that leaves a row's first tiles wholly masked, a softcap,
+# Sq != Sk
+FLASH_EDGE_CASES = [
+    (1, 130, 130, 2, 2, 16, 16, True, 0, 0.0),
+    (2, 200, 200, 8, 2, 80, 80, True, 0, 0.0),
+    (1, 300, 300, 4, 2, 128, 128, True, 70, 50.0),
+    (1, 150, 150, 3, 1, 192, 128, True, 0, 0.0),      # MLA's D / Dv
+    (1, 100, 100, 9, 1, 128, 128, True, 0, 0.0),      # starcoder2's G
+    (1, 260, 260, 2, 2, 64, 64, True, 100, 0.0),
+    (2, 96, 160, 4, 4, 32, 32, True, 0, 0.0),
+    (1, 160, 96, 4, 2, 48, 48, False, 0, 0.0),
+    (1, 77, 77, 4, 4, 20, 20, True, 0, 0.0),
+    (1, 90, 90, 2, 1, 256, 100, False, 30, 0.0),
+    (1, 64, 64, 2, 2, 1, 1, True, 0, 0.0),
+]
 SCAN_SHAPES = {
     # name: (B, S, H, K, Vd, vector decay + bonus, chunk)
     "mamba2": (4, 2048, 80, 64, 64, False, 128),
@@ -373,6 +431,21 @@ def check_flash(g, dtype):
     kernel / plain / bound / SDPA times."""
     tol = ATT_TOL[dtype]
     worst, times = 0.0, {}
+    for case in FLASH_EDGE_CASES:
+        B, Sq, Sk, H, Hkv, D, Dv, causal, window, cap = case
+        q = _randn(g, (B, Sq, H, D), dtype)
+        k = _randn(g, (B, Sk, Hkv, D), dtype)
+        v = _randn(g, (B, Sk, Hkv, Dv), dtype)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, ok = within(got, want, tol)
+        log(f"  flash_attention {str(dtype)[6:]} edge {case}: max |err| "
+            f"{err:.3e}: {ok}")
+        if not ok:
+            raise AssertionError(f"flash_attention {case} {dtype}: {err}")
+        worst = max(worst, err)
     for name, (B, S, H, Hkv, D, window, cap) in FLASH_SHAPES.items():
         q = _randn(g, (B, S, H, D), dtype)
         k = _randn(g, (B, S, Hkv, D), dtype)
@@ -391,8 +464,8 @@ def check_flash(g, dtype):
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 3, 1)
         bytes_ = (q.numel() + k.numel() + v.numel() + got.numel()) \
             * q.element_size()
-        bound, by = bound_ms(bytes_, 4 * D * B * H * _flash_pairs(S, window),
-                             dtype)
+        flops = 4 * D * B * H * _flash_pairs(S, window)
+        bound, by = bound_ms(bytes_, flops, dtype)
         lib = None
         if not window and not cap:
             # the same function in one PyTorch call, as a yardstick only
@@ -403,8 +476,10 @@ def check_flash(g, dtype):
                           10, 2)
             del qt, kt, vt
         times[name] = (ms, plain, bound, by, lib)
-        log(f"  flash_attention {str(dtype)[6:]} {name}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, SDPA "
+        rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" + (
+            "" if lib is None else f" vs SDPA {flops / lib / 1e9:.1f}"))
+        log(f"  flash_attention {str(dtype)[6:]} {name}: kernel {ms:.4f} ms "
+            f"({rate}), plain {plain:.4f} ms, SDPA "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{bound:.6f} ms ({by})")
         del q, k, v, got, want
@@ -609,12 +684,17 @@ def phase_profile(cfg, params, max_new: int = 16, top: int = 6):
         raise AssertionError(f"engine failed: {eng.error!r}")
     forwards = build.launch_counts["paged_attention"] / cfg.n_layers
     report_profile(prof, wall, forwards, cfg.n_layers, top)
+    log(f"  profile scatter index uploads per forward: "
+        f"{eng.kv_store.index_builds / forwards:.2f} (one per forward; "
+        f"{build.launch_counts['paged_scatter'] / forwards:.1f} scatter "
+        f"launches per forward)")
 
 
 def report_profile(prof, wall: float, forwards: float, n_layers: int,
                    top: int) -> None:
-    """Device busy time and idle share over the window, host launches per
-    forward, and the kernels that take the device time.  Only the device's
+    """Device busy time and idle share over the window, host kernel
+    launches and copies per forward, and the kernels that take the device
+    time.  Only the device's
     own events count: a host op's row also carries the device time of the
     kernels it launched, which would count them twice."""
     from torch.autograd import DeviceType
@@ -628,11 +708,17 @@ def report_profile(prof, wall: float, forwards: float, n_layers: int,
     busy = sum(dev_us(e) for e in events) / 1e6
     launches = sum(e.count for e in all_events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    copies = sum(e.count for e in all_events if e.key == "cudaMemcpyAsync")
     log(f"profile: window {wall:.2f} s, device busy {busy:.3f} s, idle "
         f"share {1 - busy / wall:.4f}; {forwards:.0f} forwards, "
         f"{launches / forwards:.0f} kernel launches per forward "
-        f"({launches / forwards / n_layers:.1f} per layer)")
-    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        f"({launches / forwards / n_layers:.1f} per layer), "
+        f"{copies / forwards:.1f} cudaMemcpyAsync per forward")
+    ranked = sorted(events, key=dev_us, reverse=True)
+    ours = [e for e in ranked[top:] if any(f"::{name}" in e.key for name in (
+        "paged_attention_kernel", "paged_scatter_kernel", "flash_bf16_kernel",
+        "flash_f32_kernel", "linear_scan_kernel"))]
+    for e in ranked[:top] + ours:   # this package's kernels always shown
         log(f"  profile kernel {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms "
             f"({dev_us(e) / 1e6 / busy:.4f} of busy), {e.count} launches")
 

@@ -33,11 +33,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 KERNELS = ("paged_attention", "paged_scatter", "flash_attention",
            "linear_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.PyDLL] = {}
 _entries: Dict[str, object] = {}
+
+#: what nvcc printed for each kernel compiled by this process (``-Xptxas=-v``:
+#: registers, shared memory and spills of every kernel instantiation)
+build_logs: Dict[str, str] = {}
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -74,6 +78,7 @@ def _compile(names: Iterable[str]) -> None:
     failed = []
     for name, out, tmp, p in procs:
         log, _ = p.communicate()
+        build_logs[name] = log
         if p.returncode != 0:
             failed.append(f"{name}: nvcc exited {p.returncode}\n{log}")
         else:

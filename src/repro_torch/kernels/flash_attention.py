@@ -4,17 +4,18 @@ Replaces the reference's Pallas TPU kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention.py:94``): full-sequence attention,
 causal or bidirectional, with an optional sliding window and logit
 softcap, GQA.  On the card it is bound by its operations, not its bytes,
-at prefill lengths; the kernel loads each K/V tile once into shared
-memory for all G query heads of its kv head and 64 packed rows, never
-loads a tile wholly above the diagonal or below the window, and keeps the
-online-softmax state in registers (see the source for the layout).
+at prefill lengths.  In bf16 the kernel runs both products on the tensor
+cores (``mma.sync``), keeps Q and the online-softmax state in registers,
+and double-buffers 64-key K/V tiles in shared memory with ``cp.async``;
+in float32 it runs on the CUDA cores, since the reference's f32 products
+are full f32 (see the source for both layouts).
 
 :func:`flash_attention` takes the plain PyTorch version
 (:func:`~repro_torch.kernels.ref.flash_attention_ref`) only for tensors on
-the CPU; for CUDA tensors it checks what the kernel relies on, launches it
-on the current stream, counts the launch in ``build.launch_counts``, and
-raises if the launch failed.  There is no fallback from a CUDA tensor to
-the plain version.
+the CPU; for CUDA tensors it checks what the kernel relies on
+(:func:`check_inputs`), launches it on the current stream, counts the
+launch in ``build.launch_counts``, and raises if the launch failed.  There
+is no fallback from a CUDA tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -30,25 +31,14 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import check, count, raise_on
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 256       # shared memory: Q and K tiles of 64 rows x D f32
-MAX_DV = 128      # the kernel keeps Dv / 16 accumulator columns per thread
+MAX_D = 256       # bf16: D / 16 Q fragments in registers; f32: shared memory
+MAX_DV = 128      # accumulator registers: Dv / 2 a thread (bf16), Dv / 4 (f32)
+MAX_GRID_Y = 65535   # the grid's second dimension: B * Hkv
 
 
-def flash_attention(
-    q: torch.Tensor,              # (B, Sq, H, D)
-    k: torch.Tensor,              # (B, Sk, Hkv, D)
-    v: torch.Tensor,              # (B, Sk, Hkv, Dv)
-    *,
-    causal: bool = True,
-    window: int = 0,
-    softcap: float = 0.0,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """``(B, Sq, H, Dv)`` in q's dtype.  Causal masking aligns q[0] with
-    k[0] (no offset), as in the TPU kernel."""
-    if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        softcap=softcap, scale=scale)
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int = 0) -> None:
+    """Raise ``ValueError`` on what the kernel does not take."""
     check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
           "q, k, v must be (B, S, heads, dim)")
     B, Sq, H, D = q.shape
@@ -70,7 +60,28 @@ def flash_attention(
     check(0 < D <= MAX_D and 0 < Dv <= MAX_DV,
           f"kernel takes D <= {MAX_D} and Dv <= {MAX_DV}, got {D}/{Dv}")
     check(window >= 0, f"window must be >= 0, got {window}")
-    check(B * Hkv <= 65535, f"B * Hkv = {B * Hkv} exceeds the grid")
+    check(B * Hkv <= MAX_GRID_Y, f"B * Hkv = {B * Hkv} exceeds the grid")
+
+
+def flash_attention(
+    q: torch.Tensor,              # (B, Sq, H, D)
+    k: torch.Tensor,              # (B, Sk, Hkv, D)
+    v: torch.Tensor,              # (B, Sk, Hkv, Dv)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """``(B, Sq, H, Dv)`` in q's dtype.  Causal masking aligns q[0] with
+    k[0] (no offset), as in the TPU kernel."""
+    if q.device.type == "cpu":
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        softcap=softcap, scale=scale)
+    check_inputs(q, k, v, window)
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -45,16 +45,17 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
                                     softcap=softcap, scale=scale)
 
 
-def paged_scatter(k_pages, v_pages, blk, slot, k_vals, v_vals, *,
+def paged_scatter(k_pages, v_pages, index, k_vals, v_vals, *,
                   layer: Optional[int] = None, impl: Optional[str] = None):
-    """Write token K/V into the ``(L, P, page, Hkv, D)`` pools in place (see
-    :func:`repro_torch.kernels.paged_attention.paged_scatter`)."""
+    """Write token K/V into the ``(L, P, page, Hkv, D)`` pools in place at
+    a prepared :class:`~repro_torch.kernels.paged_attention.ScatterIndex`
+    (see :func:`repro_torch.kernels.paged_attention.paged_scatter_indexed`)."""
     if resolve_impl(impl, k_pages.device) == "cuda":
-        _pa.paged_scatter(k_pages, v_pages, blk, slot, k_vals, v_vals,
-                          layer=layer)
+        _pa.paged_scatter_indexed(k_pages, v_pages, index, k_vals, v_vals,
+                                  layer=layer)
         return
-    _ref.paged_scatter_ref(k_pages, v_pages, torch.as_tensor(blk),
-                           torch.as_tensor(slot), k_vals, v_vals, layer=layer)
+    _ref.paged_scatter_ref(k_pages, v_pages, index.idx[0], index.idx[1],
+                           k_vals, v_vals, layer=layer)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,

@@ -7,7 +7,10 @@ is the BATCH max, not the engine max, and trailing pre-allocated but
 unwritten pages are dead entries (-1).
 
 :func:`paged_attention` and :func:`paged_scatter` are the wrappers of
-``csrc/paged_attention.cu`` and ``csrc/paged_scatter.cu``.  Each takes the
+``csrc/paged_attention.cu`` and ``csrc/paged_scatter.cu``;
+:func:`paged_scatter_indexed` is the scatter's per-layer form, through a
+:class:`ScatterIndex` that :func:`scatter_index` builds once per forward
+and pools that :func:`check_scatter_pools` checked once.  Each takes the
 plain PyTorch version (``kernels/ref.py``) only for tensors that lie on the
 CPU; for CUDA tensors it checks what the kernel relies on, launches it on
 the current stream, counts the launch in ``build.launch_counts``, and
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +131,53 @@ def paged_attention(
     return out
 
 
+class ScatterIndex(NamedTuple):
+    """The ``(blk, slot)`` destinations of T tokens, range-checked once, as
+    one ``(2, T)`` int32 tensor on the pages' device (row 0 the page ids,
+    row 1 the slots).  A forward builds it once and hands it to every
+    layer's write."""
+    idx: torch.Tensor
+    T: int
+
+
+def scatter_index(blk, slot, *, num_blocks: int, page: int,
+                  device) -> ScatterIndex:
+    """Check ``blk`` in ``[0, num_blocks)`` and ``slot`` in ``[0, page)`` on
+    the host and upload them as one :class:`ScatterIndex`.
+
+    On a CUDA device the upload goes through a fresh pinned buffer on the
+    current stream (:func:`to_device`), ahead of every scatter that reads
+    it; PyTorch's caching host allocator keeps that buffer until the copy
+    has run, so a later forward's index never lands under this one's."""
+    blk = np.asarray(blk, np.int64).reshape(-1)
+    slot = np.asarray(slot, np.int64).reshape(-1)
+    T = blk.shape[0]
+    check(slot.shape[0] == T, "blk and slot differ in length")
+    check(T == 0 or (blk.min() >= 0 and blk.max() < num_blocks),
+          f"block ids must lie in [0, {num_blocks})")
+    check(T == 0 or (slot.min() >= 0 and slot.max() < page),
+          f"slots must lie in [0, {page})")
+    return ScatterIndex(to_device(np.stack([blk, slot]).astype(np.int32),
+                                  device), T)
+
+
+def check_scatter_pools(k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
+    """What the scatter kernel relies on in the ``(L, P, page, Hkv, D)``
+    pools: one device, dtype and shape, contiguous, 16-byte aligned, and a
+    ``(Hkv, D)`` row a multiple of 16 bytes.  Properties of the two
+    tensors, checked once where they are made (``PagedKVStore``)."""
+    check(k_pages.dim() == 5, "page pools must be (L, P, page, Hkv, D)")
+    check(v_pages.device == k_pages.device and v_pages.dtype == k_pages.dtype
+          and v_pages.shape == k_pages.shape, "K and V pools differ")
+    check(k_pages.is_contiguous() and v_pages.is_contiguous(),
+          "page pools must be contiguous")
+    row_bytes = k_pages.shape[3] * k_pages.shape[4] * k_pages.element_size()
+    check(row_bytes % 16 == 0,
+          f"a (Hkv, D) row of {row_bytes} bytes is not a multiple of 16")
+    check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+          "tensors must be 16-byte aligned")
+
+
 def paged_scatter(
     k_pages: torch.Tensor,        # (L, P, page, Hkv, D), written in place
     v_pages: torch.Tensor,
@@ -140,49 +190,61 @@ def paged_scatter(
 ) -> None:
     """``pages[layer, blk[t], slot[t]] = vals[t]`` for K and V at once, for
     one layer or (``layer=None``) every layer.  The values are cast to the
-    pages' dtype first.  CPU pages take
-    :func:`~repro_torch.kernels.ref.paged_scatter_ref`; CUDA pages one
+    pages' dtype first.  Checks the pools and the indices, then
+    :func:`paged_scatter_indexed`: CPU pages take
+    :func:`~repro_torch.kernels.ref.paged_scatter_ref`, CUDA pages one
     launch of ``csrc/paged_scatter.cu``."""
-    blk = np.asarray(blk, np.int64).reshape(-1)
-    slot = np.asarray(slot, np.int64).reshape(-1)
+    if k_pages.device.type != "cpu":
+        check_scatter_pools(k_pages, v_pages)
+    index = scatter_index(blk, slot, num_blocks=k_pages.shape[1],
+                          page=k_pages.shape[2], device=k_pages.device)
+    paged_scatter_indexed(k_pages, v_pages, index, k_vals, v_vals,
+                          layer=layer)
+
+
+def paged_scatter_indexed(
+    k_pages: torch.Tensor,        # (L, P, page, Hkv, D), written in place
+    v_pages: torch.Tensor,
+    index: ScatterIndex,          # from scatter_index, on the pages' device
+    k_vals: torch.Tensor,         # (T, Hkv, D) with a layer, else (L, T, ...)
+    v_vals: torch.Tensor,
+    *,
+    layer: Optional[int] = None,
+) -> None:
+    """:func:`paged_scatter` through a prepared index: checks the values'
+    shapes and the layer, then launches.  The pools are taken as
+    :func:`check_scatter_pools` passed them and the index as
+    :func:`scatter_index` checked it."""
     L, P, page, Hkv, D = k_pages.shape
-    T = blk.shape[0]
-    n_layers = L if layer is None else 1
+    T = index.T
     want = (T, Hkv, D) if layer is not None else (L, T, Hkv, D)
     check(tuple(k_vals.shape) == want and tuple(v_vals.shape) == want,
           f"values must be {want}, got {tuple(k_vals.shape)}/"
           f"{tuple(v_vals.shape)}")
-    check(slot.shape[0] == T, "blk and slot differ in length")
-    check(T == 0 or (blk.min() >= 0 and blk.max() < P),
-          f"block ids must lie in [0, {P})")
-    check(T == 0 or (slot.min() >= 0 and slot.max() < page),
-          f"slots must lie in [0, {page})")
     check(layer is None or 0 <= layer < L, f"layer {layer} not in [0, {L})")
     if k_pages.device.type == "cpu":
-        _ref.paged_scatter_ref(k_pages, v_pages, torch.from_numpy(blk),
-                               torch.from_numpy(slot), k_vals, v_vals,
-                               layer=layer)
+        _ref.paged_scatter_ref(k_pages, v_pages, index.idx[0], index.idx[1],
+                               k_vals, v_vals, layer=layer)
         return
     dev, dt = k_pages.device, k_pages.dtype
-    check(v_pages.device == dev and v_pages.dtype == dt
-          and v_pages.shape == k_pages.shape, "K and V pools differ")
-    check(k_pages.is_contiguous() and v_pages.is_contiguous(),
-          "page pools must be contiguous")
-    k_vals = k_vals.to(device=dev, dtype=dt).contiguous()
-    v_vals = v_vals.to(device=dev, dtype=dt).contiguous()
-    row_bytes = Hkv * D * k_pages.element_size()
-    check(row_bytes % 16 == 0,
-          f"a (Hkv, D) row of {row_bytes} bytes is not a multiple of 16")
-    for t in (k_pages, v_pages, k_vals, v_vals):
-        check(t.data_ptr() % 16 == 0, "tensors must be 16-byte aligned")
+    check(index.idx.device == dev, f"index on {index.idx.device}, pages on "
+          f"{dev}")
+    if k_vals.dtype != dt or k_vals.device != dev:
+        k_vals = k_vals.to(device=dev, dtype=dt)
+    if v_vals.dtype != dt or v_vals.device != dev:
+        v_vals = v_vals.to(device=dev, dtype=dt)
+    k_vals, v_vals = k_vals.contiguous(), v_vals.contiguous()
+    check(k_vals.data_ptr() % 16 == 0 and v_vals.data_ptr() % 16 == 0,
+          "tensors must be 16-byte aligned")
     if T == 0:
         return
-    idx = to_device(np.stack([blk, slot]).astype(np.int32), dev)
+    ptr = index.idx.data_ptr()
     p, i = ctypes.c_void_p, ctypes.c_int
     err = build.entry("paged_scatter", [p, p, p, p, p, p, i, i, i, i, i, i, p])(
         k_pages.data_ptr(), v_pages.data_ptr(), k_vals.data_ptr(),
-        v_vals.data_ptr(), idx[0].data_ptr(), idx[1].data_ptr(),
-        0 if layer is None else layer, n_layers, P, page, T, row_bytes,
+        v_vals.data_ptr(), ptr, ptr + 4 * T,
+        0 if layer is None else layer, L if layer is None else 1, P, page, T,
+        Hkv * D * k_pages.element_size(),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "paged_scatter")
     count("paged_scatter")

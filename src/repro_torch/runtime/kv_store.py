@@ -31,7 +31,9 @@ WHERE the pages live is the ``storage`` seam:
 * ``storage="device"`` -- one contiguous ``(L, num_blocks, page, Hkv, hd)``
   tensor each for K and V on the store's device, updated IN PLACE.  Every
   token write is one launch of the page-scatter kernel (one per layer, or
-  one for all layers with ``layer=None``); ``layer_pages`` returns the
+  one for all layers with ``layer=None``), through a scatter index that a
+  forward builds once (:meth:`scatter_index`, :meth:`token_index`) and
+  hands to every layer's write; ``layer_pages`` returns the
   zero-copy views ``k[li]``/``v[li]``, so a steady-state decode step moves
   no host->device KV bytes.  The zero and poison fills are
   ``index_fill_`` on the same stream.
@@ -62,7 +64,10 @@ import torch
 from repro_torch.bridge import numpy_to_tensor
 from repro_torch.core.sim.engine import UseAfterFree
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.paged_attention import build_block_table, to_device
+from repro_torch.kernels.paged_attention import (ScatterIndex,
+                                                build_block_table,
+                                                check_scatter_pools,
+                                                scatter_index, to_device)
 from repro_torch.models.layers import torch_dtype
 
 __all__ = ["PagedKVStore", "kv_layer_order"]
@@ -122,6 +127,10 @@ class PagedKVStore:
         shape = (L, num_blocks, page_size, Hkv, hd)
         self._k = torch.zeros(shape, dtype=self.dtype, device=home)
         self._v = torch.zeros(shape, dtype=self.dtype, device=home)
+        if home.type == "cuda":
+            # what the scatter kernel relies on, once: its per-layer calls
+            # check only the values
+            check_scatter_pools(self._k, self._v)
         self._guard = (threading.RLock() if storage == "device"
                        else contextlib.nullcontext())
         self._lock = threading.Lock()
@@ -131,6 +140,7 @@ class PagedKVStore:
         # observability: the benchmark's bytes-moved axes read these
         self.bytes_written = 0          # KV bytes physically written
         self.poisons = 0                # pages poisoned (freed under the store)
+        self.index_builds = 0           # scatter indices built (and uploaded)
         self.token_bytes = int(2 * L * Hkv * hd * self._k.element_size())
 
     # ------------------------------------------------------------------
@@ -152,11 +162,11 @@ class PagedKVStore:
             self._bytes_h2d += int(x.numel() * x.element_size())
         return x.to(home)
 
-    def _scatter(self, layer, blk, slot, k, v) -> None:
+    def _scatter(self, layer, index: ScatterIndex, k, v) -> None:
         with self._guard:
             k, v = self._tensor(k), self._tensor(v)
             impl = self.scatter_impl if self.storage == "device" else "torch"
-            kops.paged_scatter(self._k, self._v, blk, slot, k, v,
+            kops.paged_scatter(self._k, self._v, index, k, v,
                                layer=layer, impl=impl)
 
     def _fill(self, blocks, value: float) -> None:
@@ -197,23 +207,39 @@ class PagedKVStore:
     # writes (owner-engine only)
     # ------------------------------------------------------------------
 
-    def _token_coords(self, blocks: Sequence[int], start: int, T: int):
-        """(block id, slot) per token for T consecutive positions from
-        ``start``, through the request's page list."""
+    def scatter_index(self, blk: Sequence[int],
+                      slot: Sequence[int]) -> ScatterIndex:
+        """Token t's destination ``(blk[t], slot[t])``, range-checked and
+        uploaded to the pages' device once, for as many writes as the
+        caller makes with it (one per layer of a forward).  The upload goes
+        on the current stream, ahead of those writes."""
+        with self._lock:
+            self.index_builds += 1
+        return scatter_index(blk, slot, num_blocks=self.num_blocks,
+                             page=self.page, device=self._k.device)
+
+    def token_index(self, blocks: Sequence[int], start: int,
+                    T: int) -> ScatterIndex:
+        """:meth:`scatter_index` of T consecutive positions from ``start``,
+        through the request's page list ``blocks``."""
         pos = np.arange(start, start + T)
         blk = np.asarray(blocks, np.int64)[pos // self.page]
-        return blk, pos % self.page
+        return self.scatter_index(blk, pos % self.page)
 
     def write_prefill(self, blocks: Sequence[int], k, v,
-                      start: int = 0, layer: Optional[int] = None) -> int:
+                      start: int = 0, layer: Optional[int] = None, *,
+                      index: Optional[ScatterIndex] = None) -> int:
         """Write a token range into ``blocks``: ``k``/``v`` are
         ``(L, T, Hkv, hd)`` post-rope K/V of T consecutive tokens from
         sequence position ``start`` (or ``(T, Hkv, hd)`` of one ``layer``).
-        ``blocks`` is the request's page list from position 0.  One scatter
-        launch either way.  Returns the number of bytes written."""
+        ``blocks`` is the request's page list from position 0; ``index``,
+        where given, is its :meth:`token_index` for this range, built once
+        for every layer.  One scatter launch either way.  Returns the
+        number of bytes written."""
         T = k.shape[1] if layer is None else k.shape[0]
-        blk, slot = self._token_coords(blocks, start, T)
-        self._scatter(layer, blk, slot, k, v)
+        if index is None:
+            index = self.token_index(blocks, start, T)
+        self._scatter(layer, index, k, v)
         nl = len(self.layer_order) if layer is None else 1
         written = int(2 * T * nl * (self.token_bytes //
                                     (2 * len(self.layer_order))))
@@ -221,11 +247,15 @@ class PagedKVStore:
         return written
 
     def append_tokens(self, blocks: Sequence[int], slots: Sequence[int],
-                      k, v, layer: int) -> int:
+                      k, v, layer: int, *,
+                      index: Optional[ScatterIndex] = None) -> int:
         """Batched decode append: token b lands in ``blocks[b]`` slot
         ``slots[b]`` of ``layer``.  ``k``/``v`` are ``(B, Hkv, hd)`` -- ONE
-        scatter for the whole ragged batch."""
-        self._scatter(layer, blocks, slots, k, v)
+        scatter for the whole ragged batch.  ``index``, where given, is
+        ``scatter_index(blocks, slots)``, built once for every layer."""
+        if index is None:
+            index = self.scatter_index(blocks, slots)
+        self._scatter(layer, index, k, v)
         written = 2 * int(k.numel()) * self._k.element_size()
         self.bytes_written += written
         return written

@@ -156,16 +156,18 @@ def paged_decode_step(
 ) -> torch.Tensor:
     """One batched decode step for a ragged batch of requests: each fed
     token's K/V is appended at page slot ``lens[b]`` (ONE scatter launch
-    per layer for the whole batch), then every layer's attention reads the
-    pages through the padded block table -- prefix-shared pages in place.
-    Returns the ``(B, vocab_padded)`` logits of the new position."""
+    per layer for the whole batch, through one index built for the whole
+    forward), then every layer's attention reads the pages through the
+    padded block table -- prefix-shared pages in place.  Returns the
+    ``(B, vocab_padded)`` logits of the new position."""
     page = store.page
     lens_np = np.asarray(lens, np.int64)
     blk = [blocks[b][int(p) // page] for b, p in enumerate(lens_np)]
     slot = [int(p) % page for p in lens_np]
+    index = store.scatter_index(blk, slot)    # uploaded once, every layer
 
     def write_layer(li, k_b, v_b):                            # (B, Hkv, hd)
-        store.append_tokens(blk, slot, k_b, v_b, layer=li)
+        store.append_tokens(blk, slot, k_b, v_b, layer=li, index=index)
 
     return _paged_forward(params, cfg, store, blocks, lens, last_tokens,
                           impl=impl, write_layer=write_layer)
@@ -184,16 +186,18 @@ def prefill_chunk_step(
     """One chunked-prefill forward: the chunk's positions become batch ROWS
     over one shared block table.  Row i carries prompt position
     ``start + i``; its K/V is written (one ``write_prefill`` scatter per
-    layer) before any row attends, and the per-row length mask keeps
-    attention causal within the chunk while earlier chunks and
-    prefix-shared pages are read in place.  Returns the
+    layer, one index for the chunk) before any row attends, and the per-row
+    length mask keeps attention causal within the chunk while earlier
+    chunks and prefix-shared pages are read in place.  Returns the
     ``(chunk, vocab_padded)`` logits."""
     c = len(tokens)
     rows = [list(blocks)] * c
     lens = list(range(start, start + c))
+    index = store.token_index(blocks, start, c)   # uploaded once, every layer
 
     def write_layer(li, k_c, v_c):                            # (c, Hkv, hd)
-        store.write_prefill(blocks, k_c, v_c, start=start, layer=li)
+        store.write_prefill(blocks, k_c, v_c, start=start, layer=li,
+                            index=index)
 
     return _paged_forward(params, cfg, store, rows, lens, tokens,
                           impl=impl, write_layer=write_layer)

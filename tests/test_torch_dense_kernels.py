@@ -226,6 +226,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ls.linear_scan(x, x, x, ld, bonus=_meta(3, 32, dtype=torch.float32))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_accepts_every_head_dim_it_took(dtype):
+    """Every D in 1..256 and Dv in 1..128 passes the wrapper's checks in
+    both dtypes (the bf16 kernel pads both to multiples of 16), and what lies
+    outside is refused, as before."""
+    def meta(*shape):
+        return _meta(*shape, dtype=dtype)
+
+    for D in range(1, fa.MAX_D + 1):
+        Dv = min(D, fa.MAX_DV)
+        fa.check_inputs(meta(2, 9, 6, D), meta(2, 5, 2, D), meta(2, 5, 2, Dv))
+    for Dv in range(1, fa.MAX_DV + 1):
+        fa.check_inputs(meta(1, 7, 3, 192), meta(1, 7, 1, 192),
+                        meta(1, 7, 1, Dv))
+    for D, Dv in ((257, 64), (64, 129), (0, 64), (64, 0)):
+        with pytest.raises(ValueError, match="D <= 256 and Dv <= 128"):
+            fa.check_inputs(meta(1, 4, 2, D), meta(1, 4, 2, D),
+                            meta(1, 4, 2, Dv))
+    with pytest.raises(ValueError, match="window"):
+        fa.check_inputs(meta(1, 4, 2, 8), meta(1, 4, 2, 8), meta(1, 4, 2, 8),
+                        window=-1)
+    with pytest.raises(ValueError, match="grid"):       # B * Hkv
+        fa.check_inputs(meta(65536, 1, 1, 8), meta(65536, 1, 1, 8),
+                        meta(65536, 1, 1, 8))
+
+
 def test_stride_zero_heads_are_read_in_place():
     """Mamba2's B/C arrive as stride-0 views over the heads; the wrapper
     takes them as they are (on the CPU: the plain version, same numbers as
@@ -243,12 +269,32 @@ def test_stride_zero_heads_are_read_in_place():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+# (B, Sq, Sk, H, Hkv, D, Dv, causal, window, softcap): the flash kernel's
+# edges on the card -- head dims 1..256 (16-byte copies or element copies,
+# padding to 16), G in {1, 2, 3, 4, 9}, S off the 64-key tile, a window
+# that leaves a row's first tiles wholly masked, a softcap, Sq != Sk
+FLASH_CARD_CASES = [
+    (1, 130, 130, 2, 2, 16, 16, True, 0, 0.0),
+    (2, 200, 200, 8, 2, 80, 80, True, 0, 0.0),
+    (1, 300, 300, 4, 2, 128, 128, True, 70, 50.0),
+    (1, 150, 150, 3, 1, 192, 128, True, 0, 0.0),      # MLA's D / Dv
+    (1, 100, 100, 9, 1, 128, 128, True, 0, 0.0),      # starcoder2's G
+    (1, 260, 260, 2, 2, 64, 64, True, 100, 0.0),
+    (2, 96, 160, 4, 4, 32, 32, True, 0, 0.0),
+    (1, 160, 96, 4, 2, 48, 48, False, 0, 0.0),
+    (1, 77, 77, 4, 4, 20, 20, True, 0, 0.0),
+    (1, 90, 90, 2, 1, 256, 100, False, 30, 0.0),
+    (1, 64, 64, 2, 2, 1, 1, True, 0, 0.0),
+]
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions_on_card():
-    """Both CUDA kernels against their plain versions on the card, at
-    small shapes that still cover several tiles and chunks: flash with GQA,
-    a window and a softcap, D = 80, a ragged S; the scan with scalar decay
-    through stride-0 heads and with vector decay and a bonus."""
+    """Both CUDA kernels against their plain versions on the card: flash
+    with GQA, a window and a softcap, D = 80, a ragged S, and at
+    ``FLASH_CARD_CASES``, in both dtypes; the scan with scalar decay
+    through stride-0 heads and with vector decay and a bonus, several
+    chunks."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
     g = torch.Generator(device="cuda").manual_seed(28)
@@ -266,6 +312,17 @@ def test_cuda_kernels_match_plain_versions_on_card():
             want = ref.flash_attention_ref(q, k, v, window=window,
                                            softcap=cap)
             assert float((got.float() - want.float()).abs().max()) <= att
+        # the edges, at chip_smoke.py's rule: |a - b| <= tol + tol |b|
+        for (B, Sq, Sk, H, Hkv, D, Dv, causal, window,
+             cap) in FLASH_CARD_CASES:
+            q = randn(B, Sq, H, D, dtype=dtype)
+            k = randn(B, Sk, Hkv, D, dtype=dtype)
+            v = randn(B, Sk, Hkv, Dv, dtype=dtype)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            got = fa.flash_attention(q, k, v, **kw).float()
+            want = ref.flash_attention_ref(q, k, v, **kw).float()
+            assert bool(((got - want).abs()
+                         <= att + att * want.abs()).all())
         tol = SCAN_TOL[str(dtype)[6:]]
         bm = randn(2, 300, 1, 64, dtype=dtype).expand(2, 300, 6, 64)
         v = randn(2, 300, 6, 64, dtype=dtype)

@@ -22,7 +22,9 @@ from repro_torch.models.model import init_params
 from repro_torch.runtime.block_pool import BlockPool
 from repro_torch.runtime.kv_store import PagedKVStore, kv_layer_order
 from repro_torch.runtime.reclaim import UnsafeEagerPolicy
-from repro_torch.serve.paged_model import paged_decode_step, prefill_kv_chunked
+from repro_torch.serve.paged_model import (paged_decode_step,
+                                           prefill_chunk_step,
+                                           prefill_kv_chunked)
 
 PAGE = 4
 KW = dict(name="kv-plain", d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
@@ -125,6 +127,77 @@ def test_pages_match_reference_store(storage, dtype):
                                       np.asarray(want, np.float32))
     assert mine.bytes_written == ref.bytes_written
     assert mine.token_bytes == ref.token_bytes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", [1, None])
+def test_prepared_index_pages_match_numpy_index_and_reference_store(layer,
+                                                                    dtype):
+    """Writes through an index built once (``token_index`` /
+    ``scatter_index``, reused for two writes as a forward reuses it per
+    layer) leave pages bit-identical to the numpy-index path's and to the
+    reference store's."""
+    rng = np.random.default_rng(22)
+    L, Hkv, hd = len(kv_layer_order(CFG)), CFG.n_kv_heads, CFG.head_dim_
+    prepared, plain = _store("device", dtype=dtype), _store("device",
+                                                           dtype=dtype)
+    ref = JStore(JCFG, 8, PAGE, dtype=jnp.dtype(dtype), storage="device")
+    lead = (L,) if layer is None else ()
+
+    def vals(T):
+        a = np.asarray(jnp.asarray(rng.standard_normal((*lead, T, Hkv, hd)),
+                                   dtype))
+        return a, numpy_to_tensor(a)
+
+    blocks = [5, 2, 7]
+    index = prepared.token_index(blocks, 3, 6)
+    for _ in range(2):
+        (k, kt), (v, vt) = vals(6), vals(6)
+        ref.write_prefill(blocks, k, v, start=3, layer=layer)
+        plain.write_prefill(blocks, kt, vt, start=3, layer=layer)
+        prepared.write_prefill(blocks, kt, vt, start=3, layer=layer,
+                               index=index)
+    blk, slot = [6, 0, 4], [1, 3, 0]
+    index = prepared.scatter_index(blk, slot)
+    (k, kt), (v, vt) = vals(3), vals(3)
+    if layer is None:
+        ref.write_prefill([6], k[:, :1], v[:, :1], start=1)   # one token
+        plain.write_prefill([6], kt[:, :1], vt[:, :1], start=1)
+        prepared.write_prefill([6], kt[:, :1], vt[:, :1], start=1,
+                               index=prepared.scatter_index([6], [1]))
+    else:
+        ref.append_tokens(blk, slot, k, v, layer=layer)
+        plain.append_tokens(blk, slot, kt, vt, layer=layer)
+        prepared.append_tokens(blk, slot, kt, vt, layer=layer, index=index)
+    for a, b, want in ((prepared.k, plain.k, ref.k),
+                       (prepared.v, plain.v, ref.v)):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(want, np.float32))
+    assert prepared.bytes_written == plain.bytes_written == ref.bytes_written
+
+
+def test_forward_builds_its_scatter_index_once_not_per_layer():
+    """A decode step and a prefill chunk each build (and upload) one
+    scatter index for all their layers' writes: the store's
+    ``index_builds`` counter moves by one per forward, while every layer
+    still writes its K/V."""
+    L = len(kv_layer_order(CFG))
+    assert L > 1
+    params = init_params(CFG, torch.Generator().manual_seed(9), device="cpu")
+    store = _store("device")
+    blocks = [0, 1, 2]
+    prefill_chunk_step(params, CFG, store, blocks, [3, 1, 4, 1, 5], 0)
+    assert store.index_builds == 1
+    assert store.bytes_written == 5 * store.token_bytes
+    for step in range(3):
+        paged_decode_step(params, CFG, store, [blocks], [5 + step], [7])
+        assert store.index_builds == 2 + step
+    assert store.bytes_written == 8 * store.token_bytes
+    # the numpy-index form of a write still builds its own index
+    one = np.zeros((L, 1, CFG.n_kv_heads, CFG.head_dim_), np.float32)
+    store.write_prefill(blocks, one, one, start=8)
+    assert store.index_builds == 5
 
 
 def test_device_steady_state_decode_moves_zero_kv_bytes():
