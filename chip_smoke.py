@@ -14,10 +14,14 @@ Phases (any failure raises and exits non-zero; none is caught):
               and cuDNN, so float32 means float32.
 2. build   -- nvcc builds every kernel of ``src/repro_torch/kernels/csrc``,
               one process per source, all at once; ptxas's registers and
-              spills of each flash instantiation.
+              spills of each flash, paged-attention and scan instantiation;
+              the wrappers' shared-memory sums against the sources' own.
 3. kernels -- each kernel against its plain version at its main path's
               shapes, bf16 and f32, elementwise |a - b| <= tol + tol |b|:
-              paged attention (H=36, Hkv=4, D=128, page=16) and flash
+              paged attention (H=36, Hkv=4, D=128, page=16: a ragged decode
+              batch with a length-0 row, poisoned dead pages in a wider
+              table, a 32-row prefill chunk, and a long-context batch of 7
+              rows of 2048-4096 tokens and one of 8192) and flash
               attention (zamba2's prefill B=4, S=2048, H=Hkv=32, D=80,
               causal; a gemma2 local layer B=1, S=8192, H=32, Hkv=16,
               D=128, window 4096, softcap 50; and the small edge cases of
@@ -26,10 +30,14 @@ Phases (any failure raises and exits non-zero; none is caught):
               prepared index, and timed both ways beside two index_put_
               calls; the linear scan (mamba2 B=4,
               S=2048, H=80, K=Vd=64, scalar decay, chunk 128; rwkv6 B=4,
-              S=2048, H=32, K=Vd=64, vector decay + bonus, chunk 32) within
-              2e-4 / 5e-2, and in f32 against the exact oracle at S=512.
-              Then each timed with CUDA events beside its plain version,
-              its library call where one exists, and its bound.
+              S=2048, H=32, K=Vd=64, vector decay + bonus, chunk 32; and
+              ``SCAN_EDGE_CASES``: S off the chunk, the 75 clamp active)
+              within 2e-4 / 5e-2, and in f32 against the exact oracle at
+              S=512.  Then each timed with CUDA events beside its plain
+              version, its library call where one exists, and its bound;
+              paged attention and the scan also by their kernels' device
+              time per launch (torch.profiler), apart from the wrapper's
+              host work.
 4. serve   -- ServeEngine(kv_store="paged", kv_storage="device") on
               starcoder2-7b at full width and depth, random bf16 weights
               from a seed: EpochPOP-pool, 2 decode engines, 1 prefill
@@ -46,8 +54,9 @@ Phases (any failure raises and exits non-zero; none is caught):
    prefill_kv -- one 512-token prompt through the full-sequence prefill
               (flash) into pages, against the chunked paged prefill's pages.
 6. dense   -- zamba2-2.7b at full width and depth: make_prefill_step on 4
-              prompts x 2048 tokens through the kernels (9 flash and 54
-              scan launches per prefill) vs the plain versions, in bf16 and
+              prompts x 2048 tokens through the kernels (9 flash calls and
+              54 scan calls, of three launches each, per prefill) vs the
+              plain versions, in bf16 and
               f32 compute; the prefill cache grafted into init_cache and 8
               decode steps against the train-mode forward; 8 greedy
               make_serve_step steps; then rwkv6-1.6b's prefill of 2 x 2048
@@ -63,6 +72,7 @@ device JSON line.  Without CUDA it exits non-zero before printing either.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
@@ -104,6 +114,8 @@ SLICE_TOL = 5e-2                 # bf16 logits through 32 layers
 
 H, HKV, D, PAGE = 36, 4, 128, 16  # starcoder2-7b attention; the serve page
 POOL_PAGES = 2048
+# the long-context decode rows (1824 pages of the pool)
+LONG_ROWS = [2048, 2560, 3072, 3584, 4096, 2304, 3328, 8192]
 DEV = "cuda"
 
 REPLACES = {
@@ -179,18 +191,102 @@ def phase_card() -> str:
 # ----------------------------------------------------------------------------
 
 
+_PTXAS_KERNELS = re.compile(
+    r"(flash_[a-z0-9]+_kernel|paged_attention_kernel|scan_state_mma|"
+    r"scan_out_mma|scan_state_f32|scan_out_f32|scan_state_pass)")
+
+
+def _ptxas_name(line: str):
+    """``kernel<args>`` from ptxas's mangled entry name: the element type
+    (bf16 / f32) and the integer and bool template arguments."""
+    m = _PTXAS_KERNELS.search(line)
+    if m is None:
+        return None
+    tmpl = line[m.end():].split("Ev", 1)[0]
+    args = []
+    if tmpl.startswith("I13__nv_bfloat16"):
+        args.append("bf16")
+    elif tmpl.startswith("If"):
+        args.append("f32")
+    args += re.findall(r"L[ib](\d+)E", tmpl)
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def phase_build() -> None:
     log(f"build: {', '.join(build.KERNELS)} in {build.build_all():.1f} s")
-    # ptxas -v of the flash kernel's instantiations: registers and spills
-    name = None
-    for line in build.build_logs.get("flash_attention", "").splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"(flash_[a-z0-9]+_kernel)((?:I?L[ib]\d+E)*)", line)
-            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else []
-            name = None if m is None else m.group(1) + (
-                f"<{','.join(args)}>" if args else "")
-        elif name and ("registers" in line or "spill" in line):
-            log(f"  ptxas {name}: {line.split('info    :')[-1].strip()}")
+    # ptxas -v of the flash, paged-attention and scan instantiations:
+    # registers and spills
+    for kernel in ("flash_attention", "paged_attention", "linear_scan"):
+        name = None
+        for line in build.build_logs.get(kernel, "").splitlines():
+            if "Compiling entry function" in line:
+                name = _ptxas_name(line)
+            elif name and ("registers" in line or "spill" in line):
+                log(f"  ptxas {name}: {line.split('info    :')[-1].strip()}")
+    check_smem_mirrors()
+
+
+def check_smem_mirrors() -> None:
+    """The wrappers' shared-memory sums (checked against the card's limit
+    before a launch) against the sources' own, at the main paths' shapes
+    and a few others."""
+    c_int = ctypes.c_int
+    pa_fn = build.load("paged_attention").paged_attention_smem_bytes
+    pa_fn.argtypes, pa_fn.restype = [c_int] * 3, ctypes.c_longlong
+    ls_fn = build.load("linear_scan").linear_scan_smem_bytes
+    ls_fn.argtypes, ls_fn.restype = [c_int] * 6, ctypes.c_longlong
+    n = 0
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for G, D in ((9, 128), (3, 32), (1, 64), (8, 128)):
+            got, want = pa_fn(code, G, D), pa.smem_bytes(dtype, G, D)
+            if got != want:
+                raise AssertionError(f"paged smem {dtype} G={G} D={D}: "
+                                     f"source {got}, wrapper {want}")
+            n += 1
+        for K, Vd, Kd, L, bonus in ((64, 64, 1, 128, False),
+                                    (64, 64, 64, 32, True),
+                                    (32, 48, 32, 32, True),
+                                    (16, 24, 1, 32, False),
+                                    (32, 32, 1, 64, True)):
+            got = ls_fn(code, K, Vd, Kd, L, int(bonus))
+            want = ls.smem_bytes(K, Vd, Kd, L, bonus, dtype)
+            if got != want:
+                raise AssertionError(f"scan smem {dtype} {(K, Vd, Kd, L)}: "
+                                     f"source {got}, wrapper {want}")
+            n += 1
+    log(f"  shared memory: the wrappers' sums equal the sources' at {n} "
+        f"shapes")
+
+
+def device_ms(fn, names, calls: int = 20):
+    """Device milliseconds per call of ``fn`` of the kernels whose names
+    contain one of ``names``, from torch.profiler's kernel times (the
+    wrapper's host work excluded), and each kernel's share:
+    ``(total, {kernel: ms per call})``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(n in e.key
+                                                    for n in names):
+            key = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                         e.key)
+            per[key] = per.get(key, 0.0) + _dev_us(e) / 1e3 / calls
+    if not per:
+        raise AssertionError(f"the profiler saw no kernel named {names}")
+    return sum(per.values()), per
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
 
 
 # ----------------------------------------------------------------------------
@@ -290,22 +386,41 @@ def check_attention(rng, dtype):
     cq = torch.from_numpy(rng.standard_normal((32, H, D), np.float32)).to(DEV)
     compare("prefill chunk 32 rows", cq, ctable, clens)
 
+    # long context, where the split over pages matters most: 7 rows of
+    # 2048-4096 tokens and one of 8192, each split over up to 64 units
+    long_lens = LONG_ROWS
+    ltable, llens = build_block_table(_decode_rows(rng, long_lens),
+                                      long_lens, page=PAGE, device=DEV)
+    lq = torch.from_numpy(rng.standard_normal((len(long_lens), H, D),
+                                              np.float32)).to(DEV)
+    compare(f"long context B={len(long_lens)} up to {max(long_lens)} "
+            f"tokens", lq, ltable, llens)
+
     elem = kp.element_size()
     timed = {
         "decode": (q, table, lens),
         "prefill_chunk": (cq, ctable, clens),
+        "long_context": (lq, ltable, llens),
     }
     times = {}
     for name, (tq, tt, tl) in timed.items():
         ms = cuda_ms(lambda: pa.paged_attention(tq, kp, vp, tt, tl,
                                                 scale=scale))
+        dev, _ = device_ms(lambda: pa.paged_attention(tq, kp, vp, tt, tl,
+                                                      scale=scale),
+                           ("paged_attention_kernel",))
         plain = cuda_ms(lambda: ref.paged_attention_ref(tq, kp, vp, tt, tl,
-                                                        scale=scale))
+                                                        scale=scale),
+                        *((10, 2) if name == "long_context" else ()))
         bound, by = _att_bound_ms(tt, tl, elem, tq.shape[0], dtype)
-        times[name] = (ms, plain, bound, by)
+        times[name] = (ms, plain, bound, by, dev)
+        plan = pa.split_plan(tq.shape[0], HKV, tt.shape[1],
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
         log(f"  paged_attention {str(dtype)[6:]} {name} B={tq.shape[0]}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms "
-            f"({by})")
+            f"kernel {ms:.4f} ms (event time of a wrapper call), device "
+            f"{dev:.4f} ms a launch (profiler), plain {plain:.4f} ms, bound "
+            f"{bound:.6f} ms ({by}); {plan.n_splits} splits a (row, kv head)")
     return worst, times
 
 
@@ -413,6 +528,15 @@ SCAN_SHAPES = {
     "mamba2": (4, 2048, 80, 64, 64, False, 128),
     "rwkv6": (4, 2048, 32, 64, 64, True, 32),
 }
+# (name, (B, S, H, K, Vd, vector decay + bonus, chunk), log decay range):
+# S off the chunk, and decays that take -cl past the 75 clamp inside a
+# chunk (the factored form's clamp, which the kernels must keep)
+SCAN_EDGE_CASES = [
+    ("mamba2 S off the chunk", (2, 1000, 8, 64, 64, False, 128), 0.01, 1.0),
+    ("rwkv6 S off the chunk", (2, 1000, 8, 64, 64, True, 32), 0.01, 1.0),
+    ("mamba2 clamp active", (2, 512, 8, 64, 64, False, 128), 0.6, 0.8),
+    ("rwkv6 clamp active", (2, 256, 8, 64, 64, True, 32), 2.4, 2.6),
+]
 
 
 def _randn(g, shape, dtype=torch.float32):
@@ -487,7 +611,7 @@ def check_flash(g, dtype):
     return worst, times
 
 
-def _scan_inputs(g, shape, dtype, S=None, max_decay=1.0):
+def _scan_inputs(g, shape, dtype, S=None, max_decay=1.0, min_decay=0.01):
     """q, k, v, log decay (and bonus) as the model hands them over: mamba2's
     q/k are one (B, S, 1, K) matrix each viewed with stride 0 over the
     heads."""
@@ -503,8 +627,8 @@ def _scan_inputs(g, shape, dtype, S=None, max_decay=1.0):
         ld_shape = (B, S, H)
         bonus = None
     v = _randn(g, (B, S, H, Vd), dtype)
-    ld = -(0.01 + (max_decay - 0.01) * torch.rand(ld_shape, generator=g,
-                                                  device=DEV))
+    ld = -(min_decay + (max_decay - min_decay) * torch.rand(
+        ld_shape, generator=g, device=DEV))
     return (q, k, v, ld), bonus
 
 
@@ -552,6 +676,8 @@ def check_scan(g, dtype):
                 raise AssertionError(f"linear_scan {name} vs exact: {e1} "
                                      f"{e2}")
         ms = cuda_ms(lambda: ls.linear_scan(*args, **kw), 10, 2)
+        dev, parts = device_ms(lambda: ls.linear_scan(*args, **kw),
+                               ("scan_state", "scan_out"), 10)
         plain = cuda_ms(lambda: ref.linear_scan_ref(*args, **kw), 3, 1)
         n = -(-S // chunk)
         L = chunk
@@ -561,11 +687,31 @@ def check_scan(g, dtype):
                   + _stored_bytes(st)
                   + (0 if bonus is None else _stored_bytes(bonus)))
         bound, by = bound_ms(bytes_, flops, dtype)
-        times[name] = (ms, plain, bound, by, None)
-        log(f"  linear_scan {str(dtype)[6:]} {name}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {bound:.6f} ms ({by})")
+        times[name] = (ms, plain, bound, by, None, dev)
+        log(f"  linear_scan {str(dtype)[6:]} {name}: kernel {ms:.4f} ms "
+            f"(event time of a wrapper call), device {dev:.4f} ms a call "
+            f"(profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       parts.items())
+            + f"), plain {plain:.4f} ms, bound {bound:.6f} ms ({by})")
         del args, out, st, want, st_want
         free_cuda()
+    # S off the chunk, and decays whose -cl passes the 75 clamp in a chunk
+    for name, shape, lo, hi in SCAN_EDGE_CASES:
+        args, bonus = _scan_inputs(g, shape, dtype, max_decay=hi,
+                                   min_decay=lo)
+        kw = dict(bonus=bonus, chunk=shape[-1])
+        out, st = ls.linear_scan(*args, **kw)
+        want, st_want = ref.linear_scan_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err, ok = within(out, want, tol)
+        err_st, ok_st = within(st, st_want, tol)
+        log(f"  linear_scan {str(dtype)[6:]} {name} {shape}: max |err| out "
+            f"{err:.3e}, state {err_st:.3e} (tol {tol:g} abs + rel): "
+            f"{ok and ok_st}")
+        if not (ok and ok_st):
+            raise AssertionError(f"linear_scan {name} {dtype}: {err} "
+                                 f"{err_st}")
+        worst = max(worst, err, err_st)
     return worst, times
 
 
@@ -699,10 +845,7 @@ def report_profile(prof, wall: float, forwards: float, n_layers: int,
     kernels it launched, which would count them twice."""
     from torch.autograd import DeviceType
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
+    dev_us = _dev_us
     all_events = prof.key_averages()
     events = [e for e in all_events if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in events) / 1e6
@@ -717,7 +860,7 @@ def report_profile(prof, wall: float, forwards: float, n_layers: int,
     ranked = sorted(events, key=dev_us, reverse=True)
     ours = [e for e in ranked[top:] if any(f"::{name}" in e.key for name in (
         "paged_attention_kernel", "paged_scatter_kernel", "flash_bf16_kernel",
-        "flash_f32_kernel", "linear_scan_kernel"))]
+        "flash_f32_kernel", "scan_state", "scan_out"))]
     for e in ranked[:top] + ours:   # this package's kernels always shown
         log(f"  profile kernel {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms "
             f"({dev_us(e) / 1e6 / busy:.4f} of busy), {e.count} launches")
@@ -1117,7 +1260,7 @@ def main() -> int:
         err_f32, t_f32 = kres[(name, torch.float32)]
         err_bf16, t_bf16 = kres[(name, torch.bfloat16)]
         if name == "paged_attention":
-            ms, plain, bound, by = t_bf16["decode"]
+            ms, plain, bound, by, _ = t_bf16["decode"]
             lib = None
         elif name == "paged_scatter":
             ms, plain, bound, lib = t_bf16
@@ -1125,7 +1268,7 @@ def main() -> int:
         elif name == "flash_attention":
             ms, plain, bound, by, lib = t_bf16["zamba2 prefill"]
         else:
-            ms, plain, bound, by, lib = t_bf16["mamba2"]
+            ms, plain, bound, by, lib, _ = t_bf16["mamba2"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

@@ -5,23 +5,31 @@ Replaces the reference's Pallas TPU kernel ``linear_scan_pallas``
 (``src/repro/kernels/linear_scan.py:81``): S_t = a_t S_{t-1} + k_t v_t^T
 in the chunked SSD form of
 :func:`~repro_torch.kernels.ref.linear_scan_ref`, scalar (Mamba2) or
-per-K vector (RWKV6) decay, the RWKV6 bonus, from a zero state.  On the
-card its arithmetic outweighs its bytes at L = 128 and its sequential
-chunks leave B * H blocks of parallelism; the kernel keeps a block's
-(K, Vd) f32 state and a whole chunk (q, k, v, decays, the L x L scores)
-in shared memory across its chunks, so only the inputs, the outputs and
-the final state touch device memory.
+per-K vector (RWKV6) decay, the RWKV6 bonus, from a zero state.  The TPU
+kernel walks the chunks in order; on the card one call runs three
+launches, so the chunk-local work runs in parallel over (batch, head,
+chunk) (:func:`~repro_torch.kernels.ref.linear_scan_chunked_ref` is the
+same split in plain PyTorch):
+
+1. per chunk, its total decay and its state contribution k_rem^T v, f32,
+   into a ``(B, H, n_chunks, K, Vd)`` scratch from ``torch.empty``;
+2. the state passed from chunk to chunk, parallel over (batch, head, K,
+   Vd): each chunk's incoming state, and the final state;
+3. per chunk, the output from its scores and its incoming state.
+
+In bf16 at the main paths' shapes phases 1 and 3 run their products on the
+tensor cores (``mma.sync``); f32 runs on the CUDA cores.
 
 Inputs are read through their strides (the last dim must be dense): the
 Mamba2 B and C matrices, shared by every head, arrive as stride-0 views
 over the heads and are never copied per head.
 
 :func:`linear_scan` takes the plain version only for tensors on the CPU;
-for CUDA tensors it checks what the kernel relies on, launches it on the
-current stream, counts the launch in ``build.launch_counts``, and raises
-if the launch failed.  There is no fallback from a CUDA tensor to the
-plain version.  Like the TPU kernel it starts from a zero state only: a
-given ``state`` raises on every device.
+for CUDA tensors it checks what the kernels rely on, launches them on the
+current stream, counts the call in ``build.launch_counts`` (one count for
+the three launches), and raises if a launch failed.  There is no fallback
+from a CUDA tensor to the plain version.  Like the TPU kernel it starts
+from a zero state only: a given ``state`` raises on every device.
 """
 
 from __future__ import annotations
@@ -39,12 +47,42 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232448        # bytes of shared memory a block may use on sm_90
 
 
-def smem_bytes(K: int, Vd: int, Kd: int, L: int, has_bonus: bool) -> int:
-    """The kernel's shared memory for one block (``smem_bytes`` in the
-    source): q and k rows at an odd stride, v, the decay columns (twice
-    with a bonus), the L x L scores, the diagonal, the state, the bonus."""
-    return 4 * (2 * L * (K | 1) + L * Vd + (2 if has_bonus else 1) * L * Kd
-                + L * L + L + K * Vd + K)
+def mma_shape(K: int, Vd: int, L: int) -> bool:
+    """Whether bf16 runs phases 1 and 3 on the tensor cores (``mma_shape``
+    in the source): K, Vd and the chunk L multiples of 16, at most 128."""
+    return (L % 16 == 0 and 16 <= L <= 128 and K % 16 == 0 and K <= 128
+            and Vd % 16 == 0 and Vd <= 128)
+
+
+def smem_bytes(K: int, Vd: int, Kd: int, L: int, has_bonus: bool,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of the largest block one call launches
+    (``smem_bytes`` in the source).  Tensor cores (bf16 at
+    :func:`mma_shape`): bf16 rows padded by 16 bytes -- phase 1 k_rem (hi
+    and lo) and v, phase 3 q and k (and the lo halves of q_eff and k_eff
+    with a vector decay), v and the incoming state (hi and lo) -- and the
+    f32 decay columns (twice with a bonus) and diagonal.  CUDA cores: f32
+    rows of q and k at an odd stride, v, the decay columns, the L x L
+    scores, the diagonal, the state and the bonus (phase 3; phase 1 is
+    smaller)."""
+    nd = 2 if has_bonus else 1
+    if dtype == torch.bfloat16 and mma_shape(K, Vd, L):
+        phase1 = 2 * (2 * L * (K + 8) + L * (Vd + 8)) + 4 * L * Kd
+        phase3 = (2 * ((4 if Kd > 1 else 2) * L * (K + 8) + L * (Vd + 8)
+                       + 2 * K * (Vd + 8)) + 4 * (nd * L * Kd + L))
+    else:
+        phase1 = 4 * (L * (K | 1) + L * Vd + L * Kd)
+        phase3 = 4 * (2 * L * (K | 1) + L * Vd + nd * L * Kd + L * L + L
+                      + K * Vd + K)
+    return max(phase1, phase3)
+
+
+def _rows_16b(t: torch.Tensor) -> bool:
+    """Whether every (batch, time, head) row of ``t`` starts 16 bytes
+    aligned, so the kernels may read it 16 bytes at a time."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % per == 0
+                                          for st in t.stride()[:3])
 
 
 def linear_scan(
@@ -90,7 +128,8 @@ def linear_scan(
         check(min(t.stride()) >= 0, f"{name} has a negative stride")
     check(chunk >= 1 and S >= 1, f"need chunk >= 1 and S >= 1, got "
           f"{chunk}/{S}")
-    smem = smem_bytes(K, Vd, Kd, chunk, bonus is not None)
+    check(B * H <= 65535, f"B * H = {B * H} exceeds the state pass's grid")
+    smem = smem_bytes(K, Vd, Kd, chunk, bonus is not None, q.dtype)
     check(smem <= MAX_SMEM, f"chunk {chunk} at K={K}, Vd={Vd} needs {smem} "
           f"bytes of shared memory, more than {MAX_SMEM}")
     u = None
@@ -100,15 +139,19 @@ def linear_scan(
         u = bonus.to(torch.float32).contiguous()
     out = torch.empty((B, S, H, Vd), dtype=v.dtype, device=dev)
     st = torch.empty((B, H, K, Vd), dtype=torch.float32, device=dev)
+    n = -(-S // chunk)
+    ds = torch.empty((B, H, n, K, Vd), dtype=torch.float32, device=dev)
+    tot = torch.empty((B, H, n, Kd), dtype=torch.float32, device=dev)
+    vec = all(_rows_16b(t) for t in (q, k, v))
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
     err = build.entry("linear_scan",
-                      [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f]
-                      + [ll] * 12 + [p])(
+                      [i] + [p] * 9 + [i] * 7 + [f] + [ll] * 12 + [i, p])(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         ld.data_ptr(), None if u is None else u.data_ptr(), out.data_ptr(),
-        st.data_ptr(), B, S, H, K, Vd, Kd, chunk, float(clamp),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *ld.stride()[:3],
+        st.data_ptr(), ds.data_ptr(), tot.data_ptr(), B, S, H, K, Vd, Kd,
+        chunk, float(clamp), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *ld.stride()[:3], int(vec),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "linear_scan")
     count("linear_scan")

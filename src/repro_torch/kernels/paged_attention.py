@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,6 +81,87 @@ def build_block_table(
             to_device(np.asarray(lengths, np.int32), device))
 
 
+#: the kernel's constants (``csrc/paged_attention.cu``)
+WARPS = 4                 # warps a block, one unit of pages each at a time
+SLICE = 16                # positions a warp scores at once
+MAX_UNITS = _ref.PAGED_MAX_UNITS   # partials per (row, kv head) at most
+BLOCKS_PER_SM = 2         # what split_plan aims for
+MAX_GD = 2048             # G * D the accumulator registers hold
+MAX_SMEM = 232448         # bytes of shared memory a block may use on sm_90
+
+
+class SplitPlan(NamedTuple):
+    """How one launch cuts each (row, kv head) over blocks: ``n_splits``
+    blocks (the grid's third axis) and room for ``max_units`` partials in
+    the scratch buffer."""
+    n_splits: int
+    max_units: int
+
+
+def split_plan(B: int, Hkv: int, max_pages: int, n_sm: int) -> SplitPlan:
+    """The launch's split over pages, from shapes only -- never from the
+    lengths or the table, which live on the device: about
+    ``BLOCKS_PER_SM`` blocks on each of ``n_sm`` SMs, but no more than the
+    units a row of ``max_pages`` pages can give the block's warps."""
+    max_units = max(1, min(max_pages, MAX_UNITS))
+    want = max(1, BLOCKS_PER_SM * n_sm // max(1, B * Hkv))
+    return SplitPlan(min(want, -(-max_units // WARPS)), max_units)
+
+
+#: ``(U, n_units)`` of a row of ``n_live`` live pages: units of U pages, at
+#: most MAX_UNITS of them, from the row's length only -- so the kernel's
+#: fold, and its bits, do not change with the table's width or the split
+row_units = _ref.paged_row_units
+
+
+def split_pages(plan: SplitPlan, n_live: int):
+    """Where the kernel takes each live page of a row: ``[(split, warp,
+    unit, pages)]``, the blocks' contiguous unit ranges and each warp's
+    every ``WARPS``-th unit, as ``csrc/paged_attention.cu`` walks them."""
+    U, n = row_units(n_live)
+    per_split = -(-n // plan.n_splits)
+    work = []
+    for z in range(plan.n_splits):
+        for w in range(WARPS):
+            for u in range(z * per_split + w, min(n, (z + 1) * per_split),
+                           WARPS):
+                work.append((z, w, u, list(range(u * U,
+                                                 min(n_live, (u + 1) * U)))))
+    return work
+
+
+def smem_bytes(dtype: torch.dtype, G: int, D: int) -> int:
+    """The kernel's shared memory for one block (``smem_bytes`` in the
+    source): q as f32 rows for G rounded up to 4 heads, each warp's two
+    stages of K and V slices (rows padded by 16 bytes), each warp's
+    scores and running m, l and correction, and the fold's final m and l
+    and per-unit weights of each head."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    return (4 * (-(-G // 4) * 4) * D
+            + elem * WARPS * 4 * SLICE * (D + 16 // elem)
+            + 4 * WARPS * (G * SLICE + 3 * G) + 4 * (2 + MAX_UNITS) * G)
+
+
+_counters: dict = {}
+_counters_lock = threading.Lock()
+_n_sm: dict = {}
+
+
+def _arrival_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """``n`` int32 arrival counters for the launches on ``stream``,
+    zero between launches (the last block of each (row, kv head) resets
+    its own).  One buffer per stream, made once and grown with
+    ``torch.zeros`` on that stream: launches on one stream run in order,
+    so they never share a counter at the same time."""
+    key = (dev.index, stream)
+    with _counters_lock:
+        buf = _counters.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+            _counters[key] = buf
+        return buf
+
+
 def paged_attention(
     q: torch.Tensor,              # (B, H, D) f32
     k_pages: torch.Tensor,        # (P, page, Hkv, D)
@@ -92,7 +174,9 @@ def paged_attention(
 ) -> torch.Tensor:
     """Ragged paged attention, ``(B, H, D)`` f32 out.  CPU tensors take
     :func:`~repro_torch.kernels.ref.paged_attention_ref`; CUDA tensors the
-    kernel of ``csrc/paged_attention.cu``."""
+    kernel of ``csrc/paged_attention.cu``, split over pages by
+    :func:`split_plan`, with its partials in a scratch buffer from
+    ``torch.empty``.  Reads neither the lengths nor the table to the host."""
     if q.device.type == "cpu":
         return _ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                         lengths, softcap=softcap, scale=scale)
@@ -117,15 +201,38 @@ def paged_attention(
           and block_table.shape[0] == B, "block_table must be (B, n) int32")
     check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,),
           "lengths must be (B,) int32")
+    elem = k_pages.element_size()
+    G = H // Hkv
+    check(D * elem % 16 == 0 and G * D <= MAX_GD,
+          f"kernel takes rows of a multiple of 16 bytes and G * D <= "
+          f"{MAX_GD}: D={D} ({k_pages.dtype}), G={G}")
+    check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+          "page pools must be 16-byte aligned")
+    smem = smem_bytes(k_pages.dtype, G, D)
+    check(smem <= MAX_SMEM, f"G={G}, D={D} in {k_pages.dtype} needs {smem} "
+          f"bytes of shared memory, more than {MAX_SMEM}")
+    check(B <= 2 ** 31 - 1 and Hkv <= 65535, f"grid ({B}, {Hkv}) too large")
     out = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    n_sm = _n_sm.get(dev.index)
+    if n_sm is None:
+        n_sm = _n_sm.setdefault(
+            dev.index, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+    plan = split_plan(B, Hkv, block_table.shape[1], n_sm)
+    part = torch.empty((B, Hkv, plan.max_units, G * (D + 2)),
+                       dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = _arrival_counters(dev, stream, B * Hkv)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     err = build.entry("paged_attention",
-                      [i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, p])(
+                      [i] + [p] * 8 + [i] * 9 + [f, f, p])(
         _PAGE_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, D, P, page, block_table.shape[1],
-        float(scale), float(softcap or 0.0),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, H, Hkv, D,
+        P, page, block_table.shape[1], plan.max_units, plan.n_splits,
+        float(scale), float(softcap or 0.0), stream)
     raise_on(err, "paged_attention")
     count("paged_attention")
     return out

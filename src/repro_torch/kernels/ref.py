@@ -13,12 +13,17 @@ holds each CUDA kernel against them on the card.
   (possibly partially filled) KV cache.
 * :func:`paged_attention_ref` -- decode attention against a paged block
   pool, through a padded block table (dead entries ``-1``).
+  :func:`paged_attention_split_ref` is the paged kernel's own structure
+  (per-split partials, a fixed-order fold), a tool of the tests.
 * :func:`paged_scatter_ref` -- the token scatter
   ``pages[layer, blk[t], slot[t]] = vals[t]`` into the K and V pools, in
   place, for one layer or all.
 * :func:`linear_scan_ref` / :func:`linear_scan_exact` -- chunked gated
   linear recurrences (Mamba2 scalar decay / RWKV6 vector decay): the
   factored form the scan kernel implements, and the exact oracle.
+  :func:`linear_scan_chunked_ref` is the same function in the kernel's
+  three phases (chunk states, state passing, chunk outputs), a tool of
+  the tests.
 * :func:`linear_scan_step` -- one recurrent step (decode).
 
 Each follows the function of the same name in the reference package's
@@ -179,6 +184,81 @@ def paged_attention_ref(
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bshd->bhgd", p, v) / l.clamp(min=1e-30)
     return out.reshape(B, H, Dv).to(q.dtype)
+
+
+PAGED_MAX_UNITS = 64   # partials per (row, kv head) of the paged kernel
+
+
+def paged_row_units(n_live: int) -> Tuple[int, int]:
+    """``(U, n_units)``: how the paged kernel cuts a row of ``n_live`` live
+    pages into units of ``U`` pages, at most ``PAGED_MAX_UNITS`` of them
+    (``csrc/paged_attention.cu`` ``row_units``)."""
+    U = -(-n_live // PAGED_MAX_UNITS) if n_live > 0 else 1
+    return U, -(-n_live // U)
+
+
+def paged_attention_split_ref(
+    q: torch.Tensor,             # (B, H, D)
+    k_pages: torch.Tensor,       # (P, page, Hkv, D)
+    v_pages: torch.Tensor,       # (P, page, Hkv, D)
+    block_table: torch.Tensor,   # (B, max_pages) int32 page ids (-1 pad)
+    lengths: torch.Tensor,       # (B,) valid tokens per sequence
+    *,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+    pages_per_split: Optional[int] = None,
+) -> torch.Tensor:
+    """What the paged kernel computes, step for step in its structure: each
+    row's live pages cut into splits of ``pages_per_split`` pages (None:
+    the kernel's own rule, :func:`paged_row_units`), one partial softmax
+    ``(m, l, acc)`` per split in f32 (masked positions -1e30 and weight
+    exactly 0; a split with no live position m = -1e30, l = 0, acc = 0),
+    then the partials folded in split order: m = max m_s, l = sum l_s
+    exp(m_s - m), acc = sum acc_s exp(m_s - m), out = acc / max(l, 1e-30).
+    A test tool: reads the lengths to the host, so nothing on the main
+    path calls it."""
+    B, H, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    max_pages = block_table.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    table = block_table.long().cpu()
+    lens = lengths.long().cpu()
+    out = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        n = int(lens[b])
+        n_live = min(-(-n // page), max_pages) if n > 0 else 0
+        U = pages_per_split or paged_row_units(n_live)[0]
+        qb = q[b].reshape(Hkv, G, D).float()
+        m = torch.full((Hkv, G), NEG_INF, device=q.device)
+        l = torch.zeros((Hkv, G), device=q.device)
+        acc = torch.zeros((Hkv, G, D), device=q.device)
+        parts = []
+        for p0 in range(0, n_live, U):
+            pids = table[b, p0:min(p0 + U, n_live)]
+            pos = (torch.arange(p0, p0 + len(pids))[:, None] * page
+                   + torch.arange(page)[None]).reshape(-1)
+            valid = ((pos < n) & (pids >= 0).repeat_interleave(page)
+                     ).to(q.device)
+            safe = pids.clamp(min=0).to(k_pages.device)
+            k = k_pages[safe].reshape(-1, Hkv, D).float()
+            v = v_pages[safe].reshape(-1, Hkv, D).float()
+            s = _softcap(torch.einsum("hgd,shd->hgs", qb, k) * scale,
+                         softcap)
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            m_s = s.amax(dim=-1)
+            p = torch.where(valid, torch.exp(s - m_s[..., None]),
+                            torch.zeros_like(s))
+            parts.append((m_s, p.sum(dim=-1), torch.einsum("hgs,shd->hgd", p,
+                                                           v)))
+        if parts:
+            m = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+        for m_s, l_s, a_s in parts:          # the fold, in split order
+            w = torch.exp(m_s - m)
+            l = l + l_s * w
+            acc = acc + a_s * w[..., None]
+        out[b] = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
 
 
 def paged_scatter_ref(
@@ -351,4 +431,54 @@ def linear_scan_ref(q, k, v, log_decay, *, state=None, bonus=None,
         st = st_new + torch.einsum("blhk,blhv->bhkv", k_rem, vc)
         ys.append(y)
     out = torch.stack(ys, 1).reshape(B, n * chunk, H, Vd)[:, :S]
+    return out.to(v.dtype), st
+
+
+def linear_scan_chunked_ref(q, k, v, log_decay, *, bonus=None,
+                            chunk: int = 128, clamp: float = 75.0):
+    """:func:`linear_scan_ref`'s function in the scan kernel's three
+    phases, every chunk at once where the kernel runs them in parallel:
+
+    1. per chunk: ``cl`` = cumsum of the log decay, the total decay
+       ``exp(cl_end)`` and the state contribution ``dS = k_rem^T v``;
+    2. the state passed along the chunks, ``S_c = S_{c-1} exp(cl_end_c) +
+       dS_c``, keeping each chunk's incoming state;
+    3. per chunk: ``y = (strictly-lower q_eff k_eff^T + diag) v + q_eff
+       S_in``.
+
+    A test tool (the kernel's structure on the CPU); the model calls the
+    scan through :mod:`repro_torch.kernels.ops`."""
+    B, S, H, K = q.shape
+    Vd = v.shape[-1]
+    vec = log_decay.dim() == 4
+    qs, ks, vs, lds, _, n = _scan_chunks(q, k, v, log_decay, None, chunk)
+    # (n, B, L, H, *) -> every chunk at once
+    cl = torch.cumsum(lds, dim=2)
+    clq = cl - lds if bonus is not None else cl
+    # phase 1
+    total = torch.exp(cl[:, :, -1])                        # (n, B, H, Kd)
+    k_rem = ks * torch.exp(cl[:, :, -1:] - cl).expand(ks.shape)
+    ds = torch.einsum("nblhk,nblhv->nbhkv", k_rem, vs)
+    # phase 2
+    st = torch.zeros((B, H, K, Vd), device=q.device)
+    s_in = []
+    for c in range(n):
+        s_in.append(st)
+        decay = total[c][..., None] if vec else total[c][..., 0][..., None,
+                                                                   None]
+        st = st * decay + ds[c]
+    s_in = torch.stack(s_in)                               # (n, B, H, K, Vd)
+    # phase 3
+    q_eff = qs * torch.exp(clq).expand(qs.shape)
+    k_eff = ks * torch.exp(torch.clamp(-cl, max=clamp)).expand(ks.shape)
+    idx = torch.arange(chunk, device=q.device)
+    lower = (idx[:, None] > idx[None, :]).float()
+    scores = torch.einsum("nblhk,nbmhk->nbhlm", q_eff, k_eff) * lower
+    u = bonus.float() if bonus is not None else torch.ones(
+        (H, K), device=q.device)
+    diag = torch.einsum("nblhk,nblhk,hk->nbhl", qs, ks, u)
+    scores = scores + torch.diag_embed(diag)
+    y = torch.einsum("nbhlm,nbmhv->nblhv", scores, vs)
+    y = y + torch.einsum("nblhk,nbhkv->nblhv", q_eff, s_in)
+    out = y.permute(1, 0, 2, 3, 4).reshape(B, n * chunk, H, Vd)[:, :S]
     return out.to(v.dtype), st

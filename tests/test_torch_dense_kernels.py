@@ -294,7 +294,7 @@ def test_cuda_kernels_match_plain_versions_on_card():
     with GQA, a window and a softcap, D = 80, a ragged S, and at
     ``FLASH_CARD_CASES``, in both dtypes; the scan with scalar decay
     through stride-0 heads and with vector decay and a bonus, several
-    chunks."""
+    chunks, S off the chunk, and decays that take -cl past the 75 clamp."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
     g = torch.Generator(device="cuda").manual_seed(28)
@@ -327,9 +327,18 @@ def test_cuda_kernels_match_plain_versions_on_card():
         bm = randn(2, 300, 1, 64, dtype=dtype).expand(2, 300, 6, 64)
         v = randn(2, 300, 6, 64, dtype=dtype)
         ld = -torch.rand((2, 300, 6), generator=g, device="cuda")
+        # decays of 0.6-0.8 (chunk 128) and 2.4-2.6 (chunk 32) a step: -cl
+        # passes the clamp inside a chunk
+        steep = -(0.6 + 0.2 * torch.rand((2, 300, 6), generator=g,
+                                         device="cuda"))
+        steep_vec = -(2.4 + 0.2 * torch.rand((2, 300, 6, 64), generator=g,
+                                             device="cuda"))
         for args, kw in (((bm, bm, v, ld), dict(chunk=128)),
                          ((v, v, v, ld[..., None].expand(2, 300, 6, 64)
                            .contiguous()),
+                          dict(chunk=32, bonus=randn(6, 64))),
+                         ((bm, bm, v, steep), dict(chunk=128)),
+                         ((v, v, v, steep_vec),
                           dict(chunk=32, bonus=randn(6, 64)))):
             got, st = ls.linear_scan(*args, **kw)
             want, st_want = ref.linear_scan_ref(*args, **kw)

@@ -222,7 +222,8 @@ def test_ops_dispatch():
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions_on_card():
     """The CUDA kernels themselves, against their plain versions on the
-    card (G = 9, D = 128, bf16 and f32, a length-0 row)."""
+    card (G = 9, D = 128, bf16 and f32, a length-0 row; long rows split
+    over many blocks, the same bits twice and with a wider table)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
     rng = np.random.default_rng(18)
@@ -238,6 +239,26 @@ def test_cuda_kernels_match_plain_versions_on_card():
         want = ref.paged_attention_ref(q, kp, kp, table, lens)
         assert float((got - want).abs().max()) <= tol
         assert torch.all(got[0] == 0)
+        # long rows (up to 2000 tokens over 64 pages, pages reused across
+        # rows): several blocks a (row, kv head) and several pages a unit
+        lp = torch.from_numpy(rng.standard_normal((64, page, Hkv, D),
+                                                  np.float32)).cuda().to(dtype)
+        rows = [list(rng.integers(0, 64, 125)) for _ in range(4)]
+        lt, ll = pa.build_block_table(rows, [2000, 1500, 17, 0], page=page,
+                                      device="cuda")
+        lq = torch.from_numpy(rng.standard_normal((4, H, D),
+                                                  np.float32)).cuda()
+        plan = pa.split_plan(4, Hkv, lt.shape[1], torch.cuda
+                             .get_device_properties(0).multi_processor_count)
+        assert plan.n_splits > 1 and pa.row_units(125)[0] > 1
+        long = pa.paged_attention(lq, lp, lp, lt, ll)
+        assert float((long - ref.paged_attention_ref(lq, lp, lp, lt, ll))
+                     .abs().max()) <= tol
+        assert torch.all(long[3] == 0)
+        wide = torch.cat([lt, torch.full((4, 7), -1, dtype=torch.int32,
+                                         device="cuda")], 1)
+        assert torch.equal(pa.paged_attention(lq, lp, lp, lt, ll), long)
+        assert torch.equal(pa.paged_attention(lq, lp, lp, wide, ll), long)
         pages = kp[None].repeat(2, 1, 1, 1, 1)
         expect = pages.clone()
         vals = torch.randn((2, 3, Hkv, D), device="cuda").to(dtype)
