@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: build its kernels, hold
 each against its plain PyTorch version, serve starcoder2-7b through the
-paged runtime, run zamba2-2.7b's and rwkv6-1.6b's dense prefill through
-the flash-attention and linear-scan kernels, serve zamba2-2.7b densely,
-and compare every path's logits through the kernels with the same through
-the plain versions.
+paged runtime (under the native policy, under every SMR scheme of the
+registry, and replaying a multi-tenant trace), run zamba2-2.7b's and
+rwkv6-1.6b's dense prefill through the flash-attention and linear-scan
+kernels, serve zamba2-2.7b densely, and compare every path's logits
+through the kernels with the same through the plain versions.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -44,6 +45,20 @@ Phases (any failure raises and exits non-zero; none is caught):
               worker, prefix cache; no use-after-free, no leaks, poisons ==
               frees, 0 host->device KV bytes per decode step, both kernels
               launched, finite logits below the poison scale.
+   smr serve -- the same traffic at 8 new tokens under every safe scheme
+              of the SMR registry (SimulatedSMRPolicy, ``gen`` backend)
+              and HazardPtrPOP and EpochPOP on ``vec``, each run a process
+              of its own (``chip_smoke.py --smr-run SCHEME BACKEND``), four
+              at a time: the same checks (NR: nothing freed), one line per
+              run with tok/s, inter-token p50/p99, frees, pings,
+              publishes, the largest ping stall and the policy's host
+              time per decode step.
+   fleet replay -- a trace of fleet_load.py's tenant mix (Poisson, 0.5
+              requests/s for 16 s) replayed in real time under
+              EpochPOP-pool, HazardPtrPOP, EpochPOP, HP and EBR, scored
+              against MLPerf's Llama-2-70B server limits (TTFT 2 s, 200 ms
+              per token): attainment, goodput, TTFT p50/p99, the largest
+              ping stall; no use-after-free.
    profile -- the same traffic under torch.profiler: device idle share,
               kernel launches and copies per forward, the kernels that
               take the time.
@@ -79,6 +94,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,8 +112,12 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.paged_attention import build_block_table  # noqa: E402
 from repro_torch.models.model import (apply_model, init_cache,  # noqa: E402
                                       init_params)
+from repro_torch.obs import SLOSpec, SLOTracker  # noqa: E402
 from repro_torch.runtime.kv_store import PagedKVStore  # noqa: E402
+from repro_torch.runtime.reclaim import supported_schemes  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.loadgen import (TenantSpec, WorkloadSpec,  # noqa: E402
+                                       generate, replay)
 from repro_torch.serve.paged_model import (paged_decode_step,  # noqa: E402
                                            prefill_kv, prefill_kv_chunked)
 from repro_torch.train.train_step import (make_prefill_step,  # noqa: E402
@@ -173,14 +193,19 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # ----------------------------------------------------------------------------
 
 
-def phase_card() -> str:
-    card = subprocess.run(
+def _card() -> str:
+    """The card's name and power limit; TF32 off for matmuls and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def phase_card() -> str:
+    card = _card()
     log(f"card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     log("tf32: torch.backends.cuda.matmul.allow_tf32=False, "
         "torch.backends.cudnn.allow_tf32=False")
     return card
@@ -745,49 +770,73 @@ def _prompts(rng, vocab):
     return prompts
 
 
-def _engine(cfg, params):
+def _engine(cfg, params, smr: str = "EpochPOP-pool", backend: str = "gen"):
     return ServeEngine(cfg, params, kv_store="paged", kv_storage="device",
-                       device=DEV, smr="EpochPOP-pool", n_engines=2,
+                       device=DEV, smr=smr, sim_backend=backend, n_engines=2,
                        prefill_workers=1, prefix_cache=True, page_size=PAGE,
                        prefill_chunk=32, num_pages=POOL_PAGES, max_batch=8)
 
 
-def phase_serve(cfg, params, card: str, max_new: int = 16):
-    rng = np.random.default_rng(SEED + 1)
-    prompts = _prompts(rng, cfg.vocab)
-    eng = _engine(cfg, params)
+def _serve(eng, prompts, max_new: int, label: str):
+    """Start ``eng``, submit ``prompts`` at ``max_new`` tokens each, wait
+    for every request, stop: (requests, wall seconds, kernel launches)."""
     build.reset_launch_counts()
     t0 = time.monotonic()
     eng.start()
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
     for r in reqs:
         if not r.done.wait(timeout=900):
-            raise AssertionError(f"request {r.rid} did not finish")
+            raise AssertionError(f"{label}: request {r.rid} did not finish")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     eng.stop()
-    launches = dict(build.launch_counts)
+    return reqs, wall, dict(build.launch_counts)
+
+
+def _serve_checks(eng, reqs, launches, want_tokens, leaky: bool = False):
+    """Raise on an engine error or a short request (``want_tokens`` is each
+    request's count); then quiesce, flush, and return the run's checks."""
     if eng.error is not None:
         raise AssertionError(f"engine failed: {eng.error!r}")
-    for r in reqs:
-        if len(r.out) != max_new:
-            raise AssertionError(f"request {r.rid}: {len(r.out)} tokens")
+    for r, n in zip(reqs, want_tokens):
+        if len(r.out) != n:
+            raise AssertionError(f"request {r.rid}: {len(r.out)} of {n} "
+                                 f"tokens")
     pool, store = eng.pool, eng.kv_store
-    pool.evict_prefixes(0)
-    pool.policy.flush()
-    stats = eng.kv_copy_stats()
+    _quiesce_and_flush(pool)
     peak = max(w.max_abs_logit for w in eng.workers)
-    checks = {
+    return {
         "no leaks": pool.check_no_leaks(),
         "poisons == freed": store.poisons == pool.stats.freed,
-        "freed > 0": pool.stats.freed > 0,
-        "prefix hits > 0": pool.stats.prefix_hits > 0,
-        "bytes_h2d_per_step == 0": stats["bytes_h2d_per_step"] == 0,
+        # NR never frees by design: its check is that nothing was freed
+        ("freed == 0" if leaky else "freed > 0"):
+            (pool.stats.freed == 0) if leaky else (pool.stats.freed > 0),
+        "bytes_h2d_per_step == 0":
+            eng.kv_copy_stats()["bytes_h2d_per_step"] == 0,
         "paged_attention launched": launches["paged_attention"] > 0,
         "paged_scatter launched": launches["paged_scatter"] > 0,
         "logits finite, below poison": (math.isfinite(peak)
                                         and peak < PagedKVStore.POISON),
     }
+
+
+def _quiesce_and_flush(pool) -> None:
+    """Evict the prefix cache, give every engine slot one empty step (the
+    later quiescent step epoch schemes need), then run a reclaim pass."""
+    pool.evict_prefixes(0)
+    for e in range(pool.n_engines):
+        pool.start_step(e)
+        pool.end_step(e)
+    pool.policy.flush()
+
+
+def phase_serve(cfg, params, card: str, max_new: int = 16):
+    prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
+    eng = _engine(cfg, params)
+    reqs, wall, launches = _serve(eng, prompts, max_new, "serve")
+    pool = eng.pool
+    checks = _serve_checks(eng, reqs, launches, [max_new] * len(reqs))
+    checks["prefix hits > 0"] = pool.stats.prefix_hits > 0
     for name, ok in checks.items():
         log(f"  serve check {name}: {ok}")
     if not all(checks.values()):
@@ -795,6 +844,7 @@ def phase_serve(cfg, params, card: str, max_new: int = 16):
     tokens = sum(len(r.out) for r in reqs)
     prompt_tokens = sum(len(p) for p in prompts)
     lat = eng.metrics.snapshot().get("tok_latency_s", {})
+    peak = max(w.max_abs_logit for w in eng.workers)
     log(f"serve: {len(reqs)} requests, {prompt_tokens} prompt tokens "
         f"({eng.prefill_tokens} prefilled, {pool.stats.prefix_hits} prefix "
         f"hits), {tokens} generated in {wall:.2f} s wall = "
@@ -803,6 +853,218 @@ def phase_serve(cfg, params, card: str, max_new: int = 16):
         f"p99 {1e3 * lat.get('p99', float('nan')):.2f} ms; max |logit| "
         f"{peak:.3f}; launches {launches}; {card}")
     return launches
+
+
+# ----------------------------------------------------------------------------
+# 4b. the paper's SMR schemes guarding the device pages
+# ----------------------------------------------------------------------------
+
+#: every safe scheme of the registry on the discrete-event backend, and the
+#: two publish-on-ping schemes again on the batch-stepped one
+SMR_RUNS = ([(s, "gen") for s in supported_schemes()]
+            + [("HazardPtrPOP", "vec"), ("EpochPOP", "vec")])
+#: the schemes whose simulated work grows with the pool (every step or
+#: every ping stores or scans max_hp = POOL_PAGES slots): their runs take
+#: minutes, the others seconds
+SMR_HEAVY = ("HazardEraPOP", "HP", "HE", "HPAsym", "DEBRA+")
+#: smr serve runs at once, one process each: four copies of the weights
+#: (14.8 GB) and the pages (2.1 GB) fit the card's 80 GB beside the
+#: script's own process, which drops its copy during the phase
+SMR_PROCS = 4
+SMR_TIMEOUT_S = 1000.0           # one run's limit; the heavy runs take minutes
+#: fleet_load.py's tenant mix (benchmarks/fleet_load.py, TENANTS): a chat
+#: tenant with a page-aligned 16-token system prompt and long-tailed
+#: lengths, a fixed batch tenant, a zipf-tailed tools tenant
+FLEET_TENANTS = (
+    TenantSpec("chat", weight=3.0, system_prefix=16,
+               prompt_len={"kind": "lognormal", "mu": 2.0, "sigma": 0.7,
+                           "lo": 4, "hi": 32},
+               output_len={"kind": "zipf", "alpha": 1.3, "lo": 2, "hi": 10}),
+    TenantSpec("batch", weight=1.0,
+               prompt_len={"kind": "fixed", "value": 12},
+               output_len={"kind": "fixed", "value": 6}),
+    TenantSpec("tools", weight=1.0,
+               prompt_len={"kind": "zipf", "alpha": 1.1, "lo": 6, "hi": 28},
+               output_len={"kind": "lognormal", "mu": 1.4, "sigma": 0.5,
+                           "lo": 2, "hi": 8}),
+)
+#: MLPerf Inference's Llama-2-70B server-scenario latency limits (TTFT
+#: 2 s, 200 ms per output token), the nearest public interactive budget
+FLEET_SLO = SLOSpec(ttft_s=2.0, tok_latency_s=0.2,
+                    name="mlperf-llama2-70b-server")
+FLEET_SCHEMES = ("EpochPOP-pool", "HazardPtrPOP", "EpochPOP", "HP", "EBR")
+
+
+def _policy_ms_per_step(eng) -> str:
+    """The policy's host time: time spent holding the simulator's lock
+    (drives and the frees they complete) and waiting for it, summed over
+    every thread, in all and per decode step.  Idle workers bracket empty
+    steps too, so their drives count.  The native EpochPOP-pool policy has
+    no simulator and no such counter."""
+    pol, steps = eng.pool.policy, max(eng.steps, 1)
+    if not hasattr(pol, "host_s"):
+        return "policy host ms/step n/a (native)"
+    return (f"policy host {pol.host_s:.3f} s held + {pol.wait_s:.3f} s "
+            f"waiting over {pol.drives} drives = policy host ms/step "
+            f"{1e3 * pol.host_s / steps:.3f} held + "
+            f"{1e3 * pol.wait_s / steps:.3f} waiting")
+
+
+def smr_serve_run(cfg, params, scheme: str, backend: str, card: str,
+                  max_new: int = 8) -> None:
+    """The serve phase's traffic (8 requests, 4 sharing a 96-token prefix)
+    at ``max_new`` tokens each under one scheme of the SMR registry: the
+    simulator-backed policy decides when each device page is freed (and
+    poisoned).  Raises on a failed check; prints one line."""
+    prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
+    eng = _engine(cfg, params, smr=scheme, backend=backend)
+    reqs, wall, launches = _serve(eng, prompts, max_new, f"{scheme}@{backend}")
+    checks = _serve_checks(eng, reqs, launches, [max_new] * len(reqs),
+                           leaky=scheme == "NR")
+    if not all(checks.values()):
+        raise AssertionError(f"{scheme}@{backend} checks failed: {checks}")
+    st = eng.pool.stats
+    lat = eng.metrics.snapshot().get("tok_latency_s", {})
+    tokens = sum(len(r.out) for r in reqs)
+    log(f"smr serve {scheme}@{backend}: {tokens} generated in "
+        f"{wall:.2f} s = {tokens / wall:.2f} generated tok/s; "
+        f"inter-token p50 {1e3 * lat.get('p50', float('nan')):.2f} ms "
+        f"p99 {1e3 * lat.get('p99', float('nan')):.2f} ms; decode steps "
+        f"{eng.steps}; freed {st.freed}, pings {st.pings}, publishes "
+        f"{st.publishes}, max ping stall {1e3 * st.max_ping_stall_s:.3f} "
+        f"ms; {_policy_ms_per_step(eng)}; launches paged_attention "
+        f"{launches['paged_attention']} paged_scatter "
+        f"{launches['paged_scatter']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checks "
+        f"passed; use-after-free: none; {card}")
+
+
+def smr_run_main(scheme: str, backend: str) -> int:
+    """``chip_smoke.py --smr-run SCHEME BACKEND``: one run of the smr serve
+    phase in a process of its own, on starcoder2-7b's weights from the
+    script's seed (the same weights as every other phase)."""
+    card = _card()
+    cfg = starcoder2_7b.CONFIG
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    smr_serve_run(cfg, init_params(cfg, gen, device=DEV), scheme, backend,
+                  card)
+    return 0
+
+
+def phase_smr_serve() -> None:
+    """Every run of ``SMR_RUNS``, each in a process of its own,
+    ``SMR_PROCS`` at a time on the one card.  A run's cost is host time under its
+    process's one GIL and the policy's one lock (the device idles most of
+    a serve step), so the runs share only the host's cores and the card.
+    The longest runs start first.  The first failure stops the other
+    processes and raises."""
+    order = ([r for h in SMR_HEAVY for r in SMR_RUNS if r[0] == h]
+             + [r for r in SMR_RUNS if r[0] not in SMR_HEAVY])
+    running = []               # (scheme, backend, process, output, t0)
+    t_all = time.monotonic()
+    try:
+        while order or running:
+            while order and len(running) < SMR_PROCS:
+                scheme, backend = order.pop(0)
+                out = tempfile.TemporaryFile(mode="w+")
+                proc = subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--smr-run", scheme, backend],
+                    stdout=out, stderr=subprocess.STDOUT, text=True)
+                running.append((scheme, backend, proc, out, time.monotonic()))
+            time.sleep(0.5)
+            for item in list(running):
+                scheme, backend, proc, out, t0 = item
+                if proc.poll() is None:
+                    if time.monotonic() - t0 > SMR_TIMEOUT_S:
+                        proc.kill()
+                        proc.wait()
+                        raise AssertionError(
+                            f"smr serve {scheme}@{backend}: no end after "
+                            f"{SMR_TIMEOUT_S:.0f} s")
+                    continue
+                running.remove(item)
+                out.seek(0)
+                text = out.read()
+                out.close()
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"smr serve {scheme}@{backend} failed (exit "
+                        f"{proc.returncode}):\n{text[-6000:]}")
+                for line in text.splitlines():
+                    if line.startswith("smr serve "):
+                        log(line)
+    finally:
+        for _, _, proc, out, _ in running:
+            proc.kill()
+            proc.wait()
+            out.close()
+    log(f"smr serve: {len(SMR_RUNS)} runs passed in "
+        f"{time.monotonic() - t_all:.1f} s, {SMR_PROCS} processes at a "
+        f"time")
+
+
+def phase_fleet_replay(cfg, params, card: str, duration_s: float = 16.0,
+                       rate_rps: float = 0.5) -> None:
+    """A fleet_load.py-style trace (its tenant mix, Poisson arrivals at
+    ``rate_rps`` for ``duration_s``, token ids over starcoder2's vocab)
+    replayed in real time through the same engine layout under each scheme
+    of ``FLEET_SCHEMES``, scored by an SLOTracker.  Evidence that the path
+    works under open-loop load, not a benchmark cell."""
+    spec = WorkloadSpec(duration_s=duration_s, seed=SEED, tenants=FLEET_TENANTS,
+                        process="poisson", rate_rps=rate_rps, vocab=cfg.vocab)
+    trace = generate(spec)
+    if len(trace.requests) < 4:
+        raise AssertionError(f"trace holds {len(trace.requests)} requests")
+    log(f"fleet trace: {len(trace.requests)} requests over "
+        f"{trace.duration_s:.2f} s, {sum(len(r.prompt) for r in trace.requests)} "
+        f"prompt tokens, {sum(r.max_new for r in trace.requests)} output "
+        f"tokens, tenants {sorted({r.tenant for r in trace.requests})}; "
+        f"SLO {FLEET_SLO.name}: TTFT <= {FLEET_SLO.ttft_s} s, per-token <= "
+        f"{FLEET_SLO.tok_latency_s} s")
+    for scheme in FLEET_SCHEMES:
+        eng = _engine(cfg, params, smr=scheme)
+        eng.start()
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        pairs = replay(trace, lambda r: (r, eng.submit(list(r.prompt),
+                                                       max_new=r.max_new)),
+                       stop=lambda: eng.error is not None)
+        for _, r in pairs:
+            if not r.done.wait(timeout=900):
+                raise AssertionError(f"{scheme}: request {r.rid} did not "
+                                     f"finish")
+        torch.cuda.synchronize()
+        elapsed = time.monotonic() - t0
+        eng.stop()
+        launches = dict(build.launch_counts)
+        if len(pairs) != len(trace.requests):
+            raise AssertionError(f"{scheme}: replayed {len(pairs)} of "
+                                 f"{len(trace.requests)} requests")
+        checks = _serve_checks(eng, [r for _, r in pairs], launches,
+                               [t.max_new for t, _ in pairs])
+        if not all(checks.values()):
+            raise AssertionError(f"{scheme} replay checks failed: {checks}")
+        slo_t = SLOTracker(FLEET_SLO, window_s=4.0)
+        for treq, r in pairs:
+            ttft = r.t_first_tok - r.t_submit
+            tok_lat = ((r.t_last_tok - r.t_first_tok) / (len(r.out) - 1)
+                       if len(r.out) > 1 else 0.0)
+            slo_t.observe(t_finish_s=max(r.t_last_tok - t0, 0.0),
+                          tokens=len(r.out), ttft_s=ttft,
+                          tok_latency_s=tok_lat, tenant=treq.tenant)
+        ttft = eng.metrics.snapshot().get("ttft_s", {})
+        st = eng.pool.stats
+        log(f"fleet replay {scheme}: {slo_t.requests} requests in "
+            f"{elapsed:.2f} s; SLO attainment {slo_t.attainment():.3f}, "
+            f"goodput {slo_t.goodput(elapsed):.3f} tok/s (TTFT <= "
+            f"{FLEET_SLO.ttft_s} s, per-token <= {FLEET_SLO.tok_latency_s} "
+            f"s); TTFT p50 {1e3 * ttft.get('p50', float('nan')):.2f} ms p99 "
+            f"{1e3 * ttft.get('p99', float('nan')):.2f} ms; max ping stall "
+            f"{1e3 * st.max_ping_stall_s:.3f} ms; freed {st.freed}; "
+            f"{_policy_ms_per_step(eng)}; use-after-free 0; {card}")
+        del eng
+        free_cuda()
 
 
 def phase_profile(cfg, params, max_new: int = 16, top: int = 6):
@@ -1226,6 +1488,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--smr-run"]:
+        return smr_run_main(*sys.argv[2:4])
     card = phase_card()
     phase_build()
     kres = phase_kernels()
@@ -1233,6 +1497,11 @@ def main() -> int:
     cfg = starcoder2_7b.CONFIG
     params = _model(cfg, "no depth cut")
     launches = phase_serve(cfg, params, card)
+    del params                 # the smr serve processes make their own
+    free_cuda()
+    phase_smr_serve()
+    params = _model(cfg, "no depth cut, the same seed")
+    phase_fleet_replay(cfg, params, card)
     phase_profile(cfg, params)
     phase_slice(cfg, params)
     phase_prefill_kv(cfg, params)

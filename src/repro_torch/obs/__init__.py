@@ -9,14 +9,19 @@ safepoints, so observability adds no cross-thread traffic on the hot path.
 * :class:`~repro_torch.obs.metrics.MetricsRegistry` -- log-bucketed
   histograms (p50/p99/p999/max) for TTFT, per-token latency, prefill queue
   wait, ping stall and reclaim-pass duration.
-
-SLO accounting (``obs/slo.py`` in the reference package) is ported in a
-later slice.
+* :class:`~repro_torch.obs.slo.SLOTracker` -- SLO attainment and goodput
+  accounting (SLO-meeting tokens/s, per-tenant, windowed over the run),
+  plus the :class:`~repro_torch.obs.slo.TimeSeriesSampler` that exports
+  gauge trajectories (queue depth, resident KV bytes, ping-stall p99) as
+  time-series rows.
 """
 
 from repro_torch.obs.metrics import Counter, Histogram, MetricsRegistry, \
     summary_keys
+from repro_torch.obs.slo import SLOSpec, SLOTracker, TimeSeriesSampler, \
+    engine_probes
 from repro_torch.obs.trace import PID_SIM, PID_WALL, Tracer, validate_trace
 
 __all__ = ["Counter", "Histogram", "MetricsRegistry", "PID_SIM", "PID_WALL",
-           "Tracer", "summary_keys", "validate_trace"]
+           "SLOSpec", "SLOTracker", "TimeSeriesSampler", "Tracer",
+           "engine_probes", "summary_keys", "validate_trace"]

@@ -3,19 +3,22 @@
 The :class:`~repro_torch.runtime.block_pool.BlockPool` owns the *mechanism*
 (free list, ownership ledger, retired list, reader sessions); a
 ``ReclaimPolicy`` owns the *decision* of when a retired block is safe to
-hand back.  Two families ship here:
+hand back.  Three families ship here:
 
 * :class:`EpochPOPPolicy` -- the native real-thread adaptation of the paper's
   EpochPOP (Algorithm 3): epoch fast path, publish-on-ping fallback under
-  pressure.  This is the default.
+  pressure.  This is the default and preserves the pool's historical
+  behavior bit-for-bit.
+* :class:`SimulatedSMRPolicy` -- plugs **any** scheme from
+  ``repro_torch.core.smr.registry`` (HP, HPAsym, HE, EBR, IBR, NBR+,
+  HazardPtrPOP, HazardEraPOP, EpochPOP, ...) into the pool by mirroring every block as a
+  node on the discrete-event simulator.  Real engine threads drive the
+  scheme's generators synchronously (``Engine.drive``); the simulator's
+  instrumented allocator turns any premature free into a hard
+  :class:`UseAfterFree` (recycling disabled, so detection is deterministic).
 * :class:`UnsafeEagerPolicy` -- frees retired blocks immediately, ignoring
   reader sessions.  Exists so the litmus tests can demonstrate that the
   tripwires actually fire for the bug class SMR prevents.
-
-The simulator-backed policy that drives any scheme of the SMR registry over
-block addresses is not part of this package yet: it needs the simulator and
-the schemes, which are ported in a later slice.  :func:`make_policy` names
-that slice when asked for one.
 
 Every policy sees the same seam:
 
@@ -31,19 +34,23 @@ Physical consequences of a free: every policy's decision funnels through
 ``BlockPool._return_blocks_if``, which notifies the pool's block listeners
 -- in paged-KV serving that is the :class:`~repro_torch.runtime.kv_store.
 PagedKVStore`, which poisons the freed block's K/V pages so a
-freed-then-gathered page raises :class:`UseAfterFree`.  A policy that frees
-too early (``UnsafeEagerPolicy``) therefore trips hard at BOTH layers: the
-pool's generation/free-set check in ``touch`` and the store's page-poison
-check in ``assert_alive``.
+freed-then-gathered page raises :class:`UseAfterFree` even outside the
+simulator.  A policy that frees too early (``UnsafeEagerPolicy``, or a
+buggy scheme) therefore trips hard at BOTH layers: the pool's
+generation/free-set check in ``touch`` and the store's page-poison check
+in ``assert_alive``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Set
 
-from repro_torch.obs import Tracer
+from repro_torch.core.sim import make_engine
+from repro_torch.core.sim.engine import Allocator, Costs, UseAfterFree
+from repro_torch.obs import PID_SIM, Tracer
 
 MAX_EPOCH = 1 << 60
 
@@ -354,32 +361,301 @@ class UnsafeEagerPolicy(ReclaimPolicy):
         return self.pool._return_blocks_if(lambda b, e: True)
 
 
+class SimulatedSMRPolicy(ReclaimPolicy):
+    """Drive any registry SMR scheme over block addresses.
+
+    Every pool block is mirrored by a one-cell node on the discrete-event
+    simulator; a shared *block table* cell per block holds the current node
+    address (exactly the indirection the serving block table provides).  Real
+    engine threads map 1:1 onto simulated threads and drive the scheme's
+    generators synchronously under a policy-wide lock (``Engine.drive``);
+    signals are delivered inline, which realizes the paper's Assumption 1
+    with zero scheduling delay.
+
+    Safety instrumentation: address recycling is disabled in the simulated
+    allocator, so the node of a freed block stays in the FREED state forever
+    and **any** stale touch raises :class:`UseAfterFree` deterministically.
+    """
+
+    name = "sim-smr"
+
+    def __init__(self, scheme: str = "HazardPtrPOP", *, seed: int = 0,
+                 reclaim_freq: Optional[int] = None, epoch_freq: int = 4,
+                 costs: Optional[Costs] = None,
+                 backend: str = "gen") -> None:
+        super().__init__()
+        self.scheme_name = scheme
+        self.seed = seed
+        self.reclaim_freq = reclaim_freq
+        self.epoch_freq = epoch_freq
+        self.costs = costs
+        self.backend = backend
+        self.name = f"sim-{scheme}"
+
+    def attach(self, pool) -> None:
+        from repro_torch.core.smr.registry import make_scheme
+
+        super().attach(pool)
+        n = pool.n_engines
+        # Per-thread (asymmetric-socket) cost vectors are sized for the
+        # pool's engine slots; the backend selects gen (discrete-event
+        # reference) or vec (batch-stepped numpy arrays, ~5-10x faster --
+        # what lets the serve_reclaim grid sweep past 4 engines)
+        self.sim = make_engine(n, backend=self.backend, costs=self.costs,
+                               seed=self.seed)
+        self.sim.mem.alloc.recycle = False      # deterministic UAF tripwire
+        # a session may reserve every block in the pool
+        self.smr = make_scheme(
+            self.scheme_name, self.sim, max_hp=pool.num_blocks,
+            reclaim_freq=self.reclaim_freq or pool.reclaim_threshold,
+            epoch_freq=self.epoch_freq)
+        self.sim.set_signal_handler(self.smr.handler)
+        for t in self.sim.threads:
+            self.smr.thread_init(t)
+        self.table = self.sim.alloc_shared(pool.num_blocks)  # block -> node ptr
+        self._node_of: Dict[int, int] = {}
+        self._retired_nodes: Dict[int, int] = {}             # node -> block
+        self._mtx = threading.RLock()                        # serializes drives
+        # the simulator's host cost, as the serving threads pay it: seconds
+        # spent holding the lock (drives, plus the frees they complete) and
+        # waiting for it, over ``drives`` outermost hook calls
+        self.host_s = 0.0
+        self.wait_s = 0.0
+        self.drives = 0
+        self._depth = 0
+
+    @contextmanager
+    def _held(self):
+        t0 = time.perf_counter()
+        with self._mtx:
+            self._depth += 1
+            t1 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.host_s += time.perf_counter() - t1
+                    self.wait_s += t1 - t0
+                    self.drives += 1
+
+    # -- step brackets --
+
+    def on_start_step(self, engine: int) -> None:
+        if engine in self.crashed:
+            return
+        with self._held():
+            t = self.sim.threads[engine]
+            self.sim.drive(engine, self.smr.start_op(t))
+
+    def on_end_step(self, engine: int) -> None:
+        if engine in self.crashed:
+            return
+        with self._held():
+            t = self.sim.threads[engine]
+            self.sim.drive(engine, self.smr.end_op(t))
+            self._collect_freed()
+
+    # -- crash recovery --
+
+    def on_engine_crash(self, engine: int) -> None:
+        """Kill the dead engine's mirrored simulated thread.  From here on
+        the scheme sees exactly what a real reclaimer would: pings to the
+        dead thread return ESRCH, wait loops skip it, era/epoch scans treat
+        whatever it last announced by each scheme's own crash rules (POP
+        frees past the dead thread's unpublished reservations; EBR's pinned
+        announcement leaks by design).  Retires the dead thread deferred in
+        its simulated retire list are stranded -- a bounded leak, the same
+        one a real crashed reclaimer causes."""
+        super().on_engine_crash(engine)
+        with self._held():
+            self.sim.kill_thread(engine)
+
+    # -- ownership --
+
+    def on_allocate(self, engine: int, blocks: Sequence[int]) -> None:
+        with self._held():
+            t = self.sim.threads[engine]
+            for b in blocks:
+                addr = self.sim.drive(engine, self.smr.alloc_node(t, 1))
+                self._node_of[b] = addr
+                self.sim.drive(engine, t.atomic_store(self.table + b, addr))
+
+    def on_retire(self, engine: int, blocks: Sequence[int]) -> None:
+        if engine in self.crashed:
+            # a dead thread's generators cannot be driven: the first
+            # surviving engine adopts the retire (BlockPool.crash_engine
+            # routes the dead reader's last-reference blocks here); with no
+            # survivor the blocks stay on the pool's retired list -- nobody
+            # is left to free them anyway
+            live = [i for i in range(self.pool.n_engines)
+                    if i not in self.crashed]
+            if not live:
+                return
+            engine = live[0]
+        with self._held():
+            t = self.sim.threads[engine]
+            for b in blocks:
+                addr = self._node_of[b]
+                self._retired_nodes[addr] = b
+                self.sim.drive(engine, self.smr.retire(t, addr))
+            self._collect_freed()
+
+    # -- reader sessions (the batched reserve-many path) --
+
+    def on_reserve(self, engine: int, session: Sequence[int]) -> None:
+        if engine in self.crashed:
+            return
+        with self._held():
+            t = self.sim.threads[engine]
+            addrs = [self.table + b for b in sorted(session)]
+            self.sim.drive(engine, self.smr.reserve_many(t, addrs))
+
+    def on_clear_session(self, engine: int) -> None:
+        if engine in self.crashed:
+            return
+        with self._held():
+            t = self.sim.threads[engine]
+            self.sim.drive(engine, self.smr.clear_many(t))
+
+    def touch(self, engine: int, blocks: Sequence[int]) -> None:
+        with self._held():
+            t = self.sim.threads[engine]
+            addrs = []
+            for b in blocks:
+                addr = self._node_of.get(b)
+                if addr is None:
+                    raise UseAfterFree(engine, b, "touch")
+                addrs.append(addr)
+            # the load IS the check: freed node cells raise in the sim.
+            # The vec backend turns the whole working set into ONE numpy
+            # gather with a vectorized use-after-free sweep.
+            load_many = getattr(t, "load_many", None)
+            if load_many is not None:
+                self.sim.drive(engine, load_many(addrs))
+            else:
+                for addr in addrs:
+                    self.sim.drive(engine, t.load(addr))
+
+    # -- reclamation --
+
+    def reclaim(self, engine: Optional[int] = None) -> int:
+        """Drain every sim thread's retired list regardless of caller.
+        Retired nodes live with the thread that retired them, so a dedicated
+        reclaimer thread (which retires nothing itself) must flush its peers;
+        the policy-wide lock makes cross-thread drives safe."""
+        t0 = time.monotonic()
+        with self._held():
+            before = self.pool.stats.freed
+            for tid in range(self.pool.n_engines):
+                if tid in self.crashed:
+                    continue   # a dead thread's generators cannot be driven
+                t = self.sim.threads[tid]
+                self.sim.drive(tid, self.smr.flush(t))
+            self._collect_freed()
+            # pings are delivered inline while the drive runs, so the wall
+            # time of the pass IS the reclaimer's ping stall here (it also
+            # includes waiting on the policy lock behind a mid-prefill
+            # drive -- exactly the contention the chunk bound caps)
+            stall = time.monotonic() - t0
+            self.pool.record_ping_stall(stall)
+            return self.pool.stats.freed - before
+
+    def flush(self) -> int:
+        return self.reclaim(None)
+
+    def on_tracer(self, tracer: Tracer) -> None:
+        """Hook the scheme's ping-timing seam: every timed
+        ping->all-acks window any simulated reclaimer experiences becomes a
+        ``ping_pass`` span in the cycle-clock domain (``PID_SIM``), on a
+        track named after the simulated thread -- so a sim-backed serve run
+        shows both domains side by side in one trace."""
+        scheme = self.scheme_name
+
+        def hook(t, t0: float, t1: float) -> None:
+            tracer.complete(
+                "ping_pass", Tracer.sim_ts(t0), Tracer.sim_ts(t1 - t0),
+                cat="smr", pid=PID_SIM,
+                tid=tracer.tid_named(f"sim t{t.tid}", PID_SIM),
+                args={"scheme": scheme})
+
+        self.smr.ping_hook = hook
+
+    # -- plumbing --
+
+    def _collect_freed(self) -> None:
+        """Blocks whose sim node reached FREED go back to the pool."""
+        state = self.sim.mem.state
+        done = [a for a in self._retired_nodes if state[a] == Allocator.FREED]
+        if done:
+            blocks = set()
+            for a in done:
+                b = self._retired_nodes.pop(a)
+                blocks.add(b)
+                if self._node_of.get(b) == a:
+                    del self._node_of[b]
+            self.pool._return_blocks_if(lambda b, e: b in blocks)
+        self._sync_stats()
+
+    def _sync_stats(self) -> None:
+        s = self.pool.stats
+        s.pings = sum(t.stats.signals_sent for t in self.sim.threads)
+        s.publishes = sum(t.stats.publishes for t in self.sim.threads)
+        s.epoch_reclaims = getattr(self.smr, "epoch_reclaims",
+                                   self.smr.reclaim_calls)
+        s.pop_reclaims = getattr(self.smr, "pop_reclaims", 0)
+
+    @property
+    def unreclaimed(self) -> int:
+        """Retired-but-unfreed blocks the scheme is still holding."""
+        return len(self._retired_nodes)
+
+
+#: schemes that are safe to plug into the pool (HP-broken is a deliberately
+#: unsafe demo of the simulator's bug-finding power; NR leaks by design but
+#: never frees early, so it stays in the safe set)
+def supported_schemes() -> List[str]:
+    from repro_torch.core.smr.registry import SCHEMES
+    return [s for s in SCHEMES if s != "HP-broken"]
+
+
+#: keyword arguments that only make sense for SimulatedSMRPolicy; the
+#: native/unsafe policies drop them so callers can thread --sim-backend and
+#: per-thread costs through uniformly
+_SIM_ONLY_KW = ("backend", "costs", "seed", "reclaim_freq", "epoch_freq")
+
 #: policy names make_policy resolves WITHOUT a simulator (the native pool
-#: adaptation and the deliberately-broken demo)
+#: adaptation and the deliberately-broken demo); the single source of truth
+#: for callers that must know whether sim-backend/cost knobs apply
 NATIVE_POLICY_NAMES = (None, "", "EpochPOP-pool", "pool",
                        "unsafe", "unsafe-eager")
 
-#: keyword arguments that only make sense for the simulator-backed policy;
-#: the native/unsafe policies drop them so callers can pass them uniformly
-_SIM_ONLY_KW = ("backend", "costs", "seed", "reclaim_freq", "epoch_freq")
-
 
 def is_simulated(name: Optional[str]) -> bool:
-    """True when ``name`` selects a simulator-backed scheme."""
+    """True when ``make_policy(name)`` builds a SimulatedSMRPolicy (so the
+    simulator backend and cost-model kwargs actually take effect)."""
     return name not in NATIVE_POLICY_NAMES
 
 
 def make_policy(name: Optional[str], **kw) -> ReclaimPolicy:
-    """'EpochPOP-pool'/None -> native policy; 'unsafe' -> the broken demo.
-    Any other name is a simulated SMR scheme, which this package does not
-    hold yet: it raises :class:`NotImplementedError`."""
-    for k in _SIM_ONLY_KW:
-        kw.pop(k, None)
+    """'EpochPOP-pool'/None -> native policy; 'unsafe' -> the broken demo;
+    any registry scheme name -> SimulatedSMRPolicy over that scheme.
+    Simulator-only kwargs (backend, costs, ...) are ignored by the
+    simulator-free policies."""
     if name in (None, "", "EpochPOP-pool", "pool"):
+        for k in _SIM_ONLY_KW:
+            kw.pop(k, None)
         return EpochPOPPolicy(**kw)
     if name in ("unsafe", "unsafe-eager"):
+        for k in _SIM_ONLY_KW:
+            kw.pop(k, None)
         return UnsafeEagerPolicy()
-    raise NotImplementedError(
-        f"SMR scheme {name!r} runs on the simulator-backed policy "
-        f"(SimulatedSMRPolicy with core/sim and core/smr), which is ported "
-        f"in a later slice; this package offers EpochPOP-pool and unsafe")
+    safe = supported_schemes()
+    if name not in safe:
+        # HP-broken exists in the registry as a simulator demo but must not
+        # resolve here: it is unsafe by construction.  Tests that want it
+        # can build SimulatedSMRPolicy("HP-broken") directly.
+        raise ValueError(
+            f"unknown or unsafe SMR scheme {name!r}; choose from "
+            f"EpochPOP-pool, unsafe, {', '.join(safe)}")
+    return SimulatedSMRPolicy(name, **kw)

@@ -12,6 +12,8 @@ differs from the exact oracle by rounding.  The wrappers' refusals are
 checked on ``meta`` tensors, which reach the checks without a card.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,9 +56,18 @@ def _both(a: np.ndarray, dtype: str):
 
 
 def _close(got, want, tol):
+    """assert_allclose, with the largest error and the pytest worker named
+    in the message, so that a failure seen only in a parallel run says
+    whether it was a wrong result and where it ran."""
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want, np.float32)
+    err = (float(np.max(np.abs(np.asarray(got, np.float32) - want)))
+           if np.shape(got) == want.shape else float("nan"))
     np.testing.assert_allclose(
-        got.float().numpy() if isinstance(got, torch.Tensor) else got,
-        np.asarray(want, np.float32), atol=tol, rtol=tol)
+        got, want, atol=tol, rtol=tol,
+        err_msg=f"max |err| {err:.3e} at tolerance {tol:.0e}, worker "
+                f"{os.environ.get('PYTEST_XDIST_WORKER', 'main')}, "
+                f"{torch.get_num_threads()} torch threads")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,7 +1,8 @@
 """The port's ServeEngine on the CPU: token parity with the reference
 engine, publish-on-ping serving with prefix sharing and no use-after-free,
-the deliberately unsafe policy tripping the tripwires, and the refusal to
-fall back to the CPU silently.
+serving under the simulator-backed SMR schemes, the deliberately unsafe
+policy tripping the tripwires, and the refusal to fall back to the CPU
+silently.
 
 Mirrors ``tests/test_kv_store.py`` (paged token parity, paged serving under
 an SMR policy) and ``tests/test_serve_multi_engine.py`` (the unsafe
@@ -92,13 +93,48 @@ def test_epoch_pop_serving_with_prefix_sharing_is_safe():
     assert eng.kv_copy_stats()["bytes_h2d_per_step"] == 0
 
 
+@pytest.mark.parametrize("smr,backend", [
+    ("HazardPtrPOP", "gen"), ("HazardEraPOP", "gen"), ("EpochPOP", "gen"),
+    ("HP", "gen"), ("HE", "gen"), ("EBR", "gen"), ("HazardPtrPOP", "vec")])
+def test_simulated_scheme_serving_matches_reference_tokens(smr, backend):
+    """Each simulated scheme serves the parity prompt set on 2 decode
+    engines with the reference engine's tokens (same bridged weights, same
+    scheme and backend), no use-after-free, no leak, and a poison fill for
+    every freed page.  The reference runs its XLA paged path here: its
+    Pallas kernel in interpret mode is held to the port by the test
+    above."""
+    jcfg, tcfg = CONFIGS["plain"]
+    jparams = j_init(jcfg, jax.random.PRNGKey(1))
+    tparams = params_from_jax(jax.device_get(jparams))
+    rng = np.random.default_rng(3)
+    prompts = [[1, 9, 3, 5, 2], [7, 2, 8, 6, 4, 1, 3, 5], [11],
+               [int(x) for x in rng.integers(1, tcfg.vocab, 11)],
+               [1, 9, 3, 5, 2, 6]]
+    kw = dict(ENGINE_KW, smr=smr, sim_backend=backend, n_engines=2)
+    want = _run(JEngine(jcfg, jparams, kernel_impl="xla", **kw), prompts)
+    eng = ServeEngine(tcfg, tparams, device="cpu", **kw)
+    assert type(eng.pool.policy).__name__ == "SimulatedSMRPolicy"
+    assert eng.pool.policy.scheme_name == smr
+    assert _run(eng, prompts) == want
+    pool = eng.pool
+    pool.policy.flush()
+    assert pool.stats.freed > 0
+    assert eng.kv_store.poisons == pool.stats.freed
+    assert pool.check_no_leaks()
+    assert pool.policy.drives > 0 and pool.policy.host_s > 0
+
+
 @pytest.mark.parametrize("smr,trips", [("unsafe", True),
-                                       ("EpochPOP-pool", False)])
+                                       ("EpochPOP-pool", False),
+                                       ("HazardPtrPOP", False),
+                                       ("EpochPOP", False),
+                                       ("HP", False)])
 def test_freeing_under_an_open_session(smr, trips):
     """Engine 1 holds a reader session over a request's pages while engine
     0 decodes it to the end and retires them.  The unsafe policy frees them
     at once: both tripwires fire (pool touch and page gather) and the pages
-    hold the poison.  EpochPOP keeps them until the session closes."""
+    hold the poison.  EpochPOP-pool and the simulated schemes keep them
+    until the session closes."""
     params = init_params(CFG, torch.Generator().manual_seed(7), device="cpu")
     eng = ServeEngine(CFG, params, device="cpu", smr=smr, n_engines=2,
                       **ENGINE_KW)
@@ -124,8 +160,15 @@ def test_freeing_under_an_open_session(smr, trips):
     else:
         pool.touch(1, blocks)
         store.assert_alive(1, blocks)
+        pool.policy.flush()
+        pool.touch(1, blocks)                 # still held after a pass
+        store.assert_alive(1, blocks)
+        assert not any(store.is_poisoned(b) for b in blocks)
         pool.end_step(1)
+        pool.start_step(0)
+        pool.end_step(0)
         pool.reclaim(0)
+        assert all(store.is_poisoned(b) for b in blocks)
         assert store.poisons == pool.stats.freed
 
 
@@ -145,9 +188,11 @@ def test_unported_paths_raise_and_name_their_slice():
             init_params(get_smoke_config(arch),
                         torch.Generator().manual_seed(0), device="cpu")
     params = init_params(CFG, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServeEngine(CFG, params, device="cpu", smr="HazardPtrPOP",
-                    **ENGINE_KW)
+    # every safe registry scheme resolves now; the unsafe demo scheme and
+    # unknown names are refused as the reference's make_policy refuses them
+    for name in ("HP-broken", "no-such-scheme"):
+        with pytest.raises(ValueError, match="unknown or unsafe SMR scheme"):
+            ServeEngine(CFG, params, device="cpu", smr=name, **ENGINE_KW)
     bad = CFG.scaled(groups=dense_stack(2, attn_kind="local"))
     with pytest.raises(ValueError, match="not supported"):
         ServeEngine(bad, params, device="cpu", **ENGINE_KW)
