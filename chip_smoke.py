@@ -4,8 +4,10 @@ each against its plain PyTorch version, serve starcoder2-7b through the
 paged runtime (under the native policy, under every SMR scheme of the
 registry, and replaying a multi-tenant trace), run zamba2-2.7b's and
 rwkv6-1.6b's dense prefill through the flash-attention and linear-scan
-kernels, serve zamba2-2.7b densely, and compare every path's logits
-through the kernels with the same through the plain versions.
+kernels, serve zamba2-2.7b densely, run olmoe-1b-7b's MoE model end to
+end, and compare every path's logits through the kernels with the same
+through the plain versions; beside them, on the host, the paper's
+data-structure grid and robustness gauntlet.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -80,6 +82,30 @@ Phases (any failure raises and exits non-zero; none is caught):
               EpochPOP-pool, 2 decode engines, prefix cache, 6 requests;
               no use-after-free, no leaks, prefix hits.
    profile -- the zamba2 prefill under torch.profiler.
+7. structures -- host work in a process of its own (``chip_smoke.py
+              --structures``), started before the build and joined after
+              the kernels phase: the paper's throughput grid (HML, LL,
+              HMHT, DGT x read/update x PAPER_SET, 8 threads, key range
+              128, 300k cycles, seed 7, ``vec``), one line per structure
+              and mix with each scheme's throughput in simulator units and
+              the HazardPtrPOP/HP, HazardPtrPOP/HPAsym, HazardEraPOP/HE,
+              EpochPOP/EBR ratios; ``run_gauntlet(quick=True)`` on ``gen``
+              and ``vec``.  No use-after-free by a safe scheme; HP-broken
+              the only scheme that trips, on ``gen`` in every fault mode;
+              a trial and a gauntlet cell repeated give identical rows.
+8. olmoe   -- olmoe-1b-7b at full width and depth (16 layers, 64 experts
+              top-8): make_prefill_step on 4 x 2048 tokens through the
+              kernels (16 flash launches) vs the plain versions in bf16 and
+              f32, with the MoE routing of the plain f32 run replayed in
+              the others (a perturbation of the kernels' size flips
+              near-ties of the discrete routing; the flips and the
+              unpinned distances are printed); two more bf16 prefills
+              bit-equal to the first; decode
+              steps after a prefill vs the train-mode forward (experts
+              dropless in both); one MoE layer timed beside its bound; the
+              MoE share of the prefill's device time (torch.profiler);
+              prefill and decode times and peak memory; dense serving of
+              the zamba2 traffic; the paged path's ValueError.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.  Without CUDA it exits non-zero before printing either.
@@ -88,6 +114,7 @@ device JSON line.  Without CUDA it exits non-zero before printing either.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import math
@@ -103,15 +130,22 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import (rwkv6_1p6b, starcoder2_7b,  # noqa: E402
-                                 zamba2_2p7b)
+from repro_torch.configs import (olmoe_1b_7b, rwkv6_1p6b,  # noqa: E402
+                                 starcoder2_7b, zamba2_2p7b)
+from repro_torch.core.gauntlet import (gauntlet_cell,  # noqa: E402
+                                       run_gauntlet, summarize)
+from repro_torch.core.smr.registry import PAPER_SET  # noqa: E402
+from repro_torch.core.workload import STRUCTURES, run_trial  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.paged_attention import build_block_table  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import (apply_model, init_cache,  # noqa: E402
-                                      init_params)
+                                      init_params, layer_params)
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import apply_moe, capacity  # noqa: E402
 from repro_torch.obs import SLOSpec, SLOTracker  # noqa: E402
 from repro_torch.runtime.kv_store import PagedKVStore  # noqa: E402
 from repro_torch.runtime.reclaim import supported_schemes  # noqa: E402
@@ -528,6 +562,7 @@ FLASH_SHAPES = {
     # name: (B, S, H, Hkv, D, window, softcap)
     "zamba2 prefill": (4, 2048, 32, 32, 80, 0, 0.0),
     "gemma2 local": (1, 8192, 32, 16, 128, 4096, 50.0),
+    "olmoe prefill": (4, 2048, 16, 16, 128, 0, 0.0),
 }
 # (B, Sq, Sk, H, Hkv, D, Dv, causal, window, softcap): the flash kernel's
 # edges, the cases of tests/test_torch_dense_kernels.py's card test (this
@@ -1099,17 +1134,19 @@ def phase_profile(cfg, params, max_new: int = 16, top: int = 6):
 
 
 def report_profile(prof, wall: float, forwards: float, n_layers: int,
-                   top: int) -> None:
+                   top: int, skip: tuple = ()) -> float:
     """Device busy time and idle share over the window, host kernel
     launches and copies per forward, and the kernels that take the device
-    time.  Only the device's
-    own events count: a host op's row also carries the device time of the
-    kernels it launched, which would count them twice."""
+    time; returns the busy seconds.  Only the device's own events count: a
+    host op's row also carries the device time of the kernels it launched,
+    which would count them twice (and so would a user range's device-side
+    span: its name goes in ``skip``)."""
     from torch.autograd import DeviceType
 
     dev_us = _dev_us
     all_events = prof.key_averages()
-    events = [e for e in all_events if e.device_type == DeviceType.CUDA]
+    events = [e for e in all_events if e.device_type == DeviceType.CUDA
+              and e.key not in skip]
     busy = sum(dev_us(e) for e in events) / 1e6
     launches = sum(e.count for e in all_events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
@@ -1126,6 +1163,7 @@ def report_profile(prof, wall: float, forwards: float, n_layers: int,
     for e in ranked[:top] + ours:   # this package's kernels always shown
         log(f"  profile kernel {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms "
             f"({dev_us(e) / 1e6 / busy:.4f} of busy), {e.count} launches")
+    return busy
 
 
 # ----------------------------------------------------------------------------
@@ -1294,7 +1332,8 @@ def _check_prefill(name, runs, f32_tol: float):
         log(f"dense prefill {name} {dtype}: last-position logits {tuple(a.shape)}, "
             f"kernels vs plain max |diff| {err:.4e} (tol {tol:.4g} abs + rel): "
             f"{ok}; argmax agreement {agree:.4f}; max |logit| "
-            f"{float(b.abs().max()):.3f}; prefill host time kernels "
+            f"{float(b[b > -1e29].abs().max()):.3f} (padded vocab masked "
+            f"to -1e30 left out); prefill host time kernels "
             f"{1e3 * runs[(dtype, 'cuda')][3]:.1f} ms, plain "
             f"{1e3 * runs[(dtype, 'torch')][3]:.1f} ms; launches "
             f"{runs[(dtype, 'cuda')][2]}")
@@ -1385,11 +1424,11 @@ def phase_rwkv_prefill(cfg, params, batch: int = 2, seq: int = 2048):
 
 
 def phase_dense_serve(cfg, params, card: str, max_new: int = 8):
-    """ServeEngine(kv_store="dense") on zamba2-2.7b: 6 requests of 32-96
-    prompt tokens, 3 sharing a 32-token prefix (the first of them goes in
-    alone until its prefix is published, so the other two can hit it).
-    This path prefills token by token through decode mode, as the
-    reference's dense engine does: it launches neither new kernel."""
+    """ServeEngine(kv_store="dense") on zamba2-2.7b or olmoe-1b-7b: 6
+    requests of 32-96 prompt tokens, 3 sharing a 32-token prefix (the first
+    of them goes in alone until its prefix is published, so the other two
+    can hit it).  This path prefills token by token through decode mode, as
+    the reference's dense engine does: it launches neither new kernel."""
     rng = np.random.default_rng(SEED + 5)
     shared = rng.integers(1, cfg.vocab, 32).tolist()
     prompts = [shared + rng.integers(1, cfg.vocab, n).tolist()
@@ -1468,6 +1507,372 @@ def phase_dense_profile(cfg, params, batch: int = 4, seq: int = 2048,
 
 
 # ----------------------------------------------------------------------------
+# 7. the paper's data-structure workloads and robustness gauntlet (host)
+# ----------------------------------------------------------------------------
+
+#: benchmarks/smr_throughput.py's settings, on the batch-stepped simulator
+STRUCT_TRIAL = dict(key_range=128, duration=300_000.0, seed=7, backend="vec")
+STRUCT_THREADS = 8
+#: the paper's headline contrasts: each publish-on-ping scheme against the
+#: scheme it replaces
+STRUCT_RATIOS = (("HazardPtrPOP", "HP"), ("HazardPtrPOP", "HPAsym"),
+                 ("HazardEraPOP", "HE"), ("EpochPOP", "EBR"))
+STRUCT_TIMEOUT_S = 600.0
+
+
+def _trial_row(res) -> dict:
+    return {k: v for k, v in vars(res).items() if not k.startswith("_")}
+
+
+def phase_structures() -> None:
+    """The paper's throughput grid (4 structures x read/update x PAPER_SET)
+    and ``run_gauntlet(quick=True)`` on both simulator backends.  Host work
+    only: the simulators run on the CPU, so the throughputs are simulator
+    units (ops per million simulated cycles), not the card's.  A
+    use-after-free in a trial of a safe scheme raises out of ``run_trial``;
+    in the gauntlet ``HP-broken`` must be the only scheme that trips, and
+    on ``gen`` it trips in every fault mode.  One trial and one gauntlet
+    cell, repeated, must give identical rows."""
+    host = f"host of {_card()}"
+    t_all = time.monotonic()
+    for structure in STRUCTURES:
+        for workload in ("read", "update"):
+            t0 = time.monotonic()
+            tp = {s: run_trial(structure, s, STRUCT_THREADS,
+                               workload=workload, **STRUCT_TRIAL).throughput
+                  for s in PAPER_SET}
+            ratios = ", ".join(f"{a}/{b} {tp[a] / tp[b]:.3f}"
+                               for a, b in STRUCT_RATIOS)
+            log(f"structures {structure} {workload}: throughput in ops per "
+                f"million simulated cycles (simulator units, not the "
+                f"card's), {STRUCT_THREADS} threads, key range "
+                f"{STRUCT_TRIAL['key_range']}, "
+                f"{STRUCT_TRIAL['duration']:.0f} cycles, "
+                f"{STRUCT_TRIAL['backend']}: "
+                + ", ".join(f"{s} {v:.1f}" for s, v in tp.items())
+                + f"; {ratios}; host wall {time.monotonic() - t0:.1f} s "
+                f"({host})")
+    args = ("HML", "HazardPtrPOP", STRUCT_THREADS)
+    a = _trial_row(run_trial(*args, workload="update", **STRUCT_TRIAL))
+    b = _trial_row(run_trial(*args, workload="update", **STRUCT_TRIAL))
+    if a != b:
+        raise AssertionError(f"repeated trial rows differ: {a} vs {b}")
+    log(f"structures: repeated HML/HazardPtrPOP update trial, identical "
+        f"rows: True; grid host wall {time.monotonic() - t_all:.1f} s "
+        f"({host})")
+    for backend in ("gen", "vec"):
+        t0 = time.monotonic()
+        rows = run_gauntlet(backends=(backend,), quick=True)
+        uaf = sorted({r["scheme"] for r in rows if r["uaf"]})
+        broken = [r["uaf"] for r in rows if r["scheme"] == "HP-broken"]
+        safe = not any(r["uaf"] for r in rows if r["scheme"] != "HP-broken")
+        ok = safe and (backend != "gen" or (uaf == ["HP-broken"]
+                                            and all(broken)))
+        head = summarize(rows)
+        log(f"gauntlet {backend}: {len(rows)} rows, "
+            f"{len({r['scheme'] for r in rows})} schemes; use-after-free "
+            f"schemes {uaf} (HP-broken rows tripping {sum(broken)} of "
+            f"{len(broken)}); desched-stall peak garbage vs EBR "
+            f"{head.get(f'{backend}/desched_peak_vs_EBR')}; host wall "
+            f"{time.monotonic() - t0:.1f} s ({host}): {ok}")
+        if not ok:
+            raise AssertionError(f"gauntlet {backend}: use-after-free "
+                                 f"schemes {uaf}, HP-broken {broken}")
+    cell = ("HazardPtrPOP", "gen", "signal-delay", 20_000.0)
+    quick = dict(nthreads=4, duration=150_000.0)
+    if gauntlet_cell(*cell, **quick) != gauntlet_cell(*cell, **quick):
+        raise AssertionError("repeated gauntlet cell rows differ")
+    log(f"structures: repeated gauntlet cell {cell}, identical rows: True; "
+        f"phase host wall {time.monotonic() - t_all:.1f} s ({host})")
+
+
+def start_structures():
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--structures"],
+        stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.monotonic()
+
+
+def finish_structures(started) -> None:
+    """Wait for the structures process, print its lines, raise if it
+    failed."""
+    proc, out, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, STRUCT_TIMEOUT_S - (time.monotonic()
+                                                       - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"structures: no end after "
+                             f"{STRUCT_TIMEOUT_S:.0f} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.seek(0)
+        text = out.read()
+        out.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"structures failed (exit {proc.returncode}):"
+                             f"\n{text[-6000:]}")
+    for line in text.splitlines():
+        log(line)
+
+
+# ----------------------------------------------------------------------------
+# 8. olmoe-1b-7b: the MoE layer end to end
+# ----------------------------------------------------------------------------
+
+
+def _moe_profile(cfg, params, toks, top: int = 6):
+    """One bf16 prefill under torch.profiler, each MoE layer inside a
+    ``moe_layer`` range: device busy time, and the share of it that the
+    kernels launched inside the ranges take (None when the profiler puts no
+    device time on them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def traced(p, x, *, cfg):
+        with record_function("moe_layer"):
+            return plain(p, x, cfg=cfg)
+
+    step = make_prefill_step(cfg)
+    step(params, toks)
+    torch.cuda.synchronize()
+    plain, model_mod.apply_moe = model_mod.apply_moe, traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            step(params, toks)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        model_mod.apply_moe = plain
+    log(f"olmoe profile: {cfg.name} prefill of {toks.shape[0]} x "
+        f"{toks.shape[1]} tokens")
+    busy = report_profile(prof, wall, 1, cfg.n_layers, top,
+                          skip=("moe_layer",))
+    ranges = [e for e in prof.events() if e.name == "moe_layer"
+              and e.device_type == DeviceType.CPU]
+    moe_s = sum(e.device_time_total if hasattr(e, "device_time_total")
+                else e.cuda_time_total for e in ranges) / 1e6
+    return busy, (moe_s if moe_s > 0 else None), len(ranges)
+
+
+def _routing_pinned(cfg, params, toks):
+    """The prefill through the plain versions in f32, recording each MoE
+    layer's routing (each token's experts and each expert's kept tokens),
+    then through the kernels in f32 and through both paths in bf16 with
+    that routing replayed.  The router's choices are discrete: a
+    perturbation of the flash kernel's size (~5e-7 in f32) flips a near-tie
+    somewhere among 16 layers x 8192 tokens x 64 experts, and the flipped
+    token's output then differs by a whole expert's share; bf16 rounding
+    flips many.  With one run's choices pinned, the runs differ only by the
+    kernels' and the dtypes' numerics.  Returns {(dtype, impl): last
+    logits over the real vocabulary} and, per replayed run, how many of
+    its own choices differ from the recorded ones: tokens whose expert set
+    differs, and (expert, token) pairs kept by one run only."""
+    real, rec, at = moe_mod.route, [], [0]
+    flips = {}
+
+    def kept(cw, ci, T):
+        m = torch.zeros((cw.shape[0], T + 1), dtype=torch.bool, device=DEV)
+        return m.scatter_(1, torch.where(cw > 0, ci, T), True)[:, :T]
+
+    def record(p, xt, cfg):
+        out = real(p, xt, cfg)
+        rec.append(out)
+        return out
+
+    def replay(key):
+        flips[key] = [0, 0]
+
+        def route(p, xt, cfg):
+            own, want = real(p, xt, cfg), rec[at[0]]
+            at[0] += 1
+            T = xt.shape[0]
+            flips[key][0] += int((own[0].sort(-1).values
+                                  != want[0].sort(-1).values).any(-1).sum())
+            flips[key][1] += int((kept(*own[1:3], T)
+                                  != kept(*want[1:3], T)).sum())
+            return want[0], want[1], want[2], own[3]
+        return route
+
+    out = {}
+    try:
+        for dtype, impl in (("float32", "torch"), ("float32", "cuda"),
+                            ("bfloat16", "torch"), ("bfloat16", "cuda")):
+            at[0] = 0
+            moe_mod.route = (record if not rec else replay((dtype, impl)))
+            lg = make_prefill_step(cfg.scaled(dtype=dtype), impl=impl)(
+                params, toks)[0]
+            out[(dtype, impl)] = lg.float()[..., :cfg.vocab]
+            if at[0] not in (0, len(rec)):
+                raise AssertionError(f"routing replay: {at[0]} of "
+                                     f"{len(rec)} layers")
+            free_cuda()
+    finally:
+        moe_mod.route = real
+    return out, flips
+
+
+def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
+                steps: int = 4) -> int:
+    """olmoe-1b-7b at full width and depth: the prefill through the flash
+    kernel vs the plain path (16 flash launches through the kernels, none
+    through the plain path; bf16 and f32 compared with the MoE routing
+    pinned, the unpinned distances and routing flips printed), two more
+    bf16 prefills bit-equal to the first, decode steps after a prefill
+    against the train-mode forward, one MoE layer timed beside its bound,
+    the MoE share of the prefill's device time, dense serving, and the
+    paged path's refusal.  Returns the flash launches of one prefill
+    through the kernels."""
+    cfg = olmoe_1b_7b.CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    params = _model(cfg, f"no cut: {cfg.moe.n_experts} experts, top-"
+                         f"{cfg.moe.top_k}, expert d_ff {cfg.moe.d_ff}")
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq + steps))
+                            ).to(DEV)
+    runs = _prefill_runs(cfg, params, toks[:, :seq])
+    want = {"flash_attention": cfg.n_layers, "linear_scan": 0}
+    for dtype in ("bfloat16", "float32"):
+        for impl, expect in (("cuda", want), ("torch", {})):
+            got = {k: runs[(dtype, impl)][2][k] for k in want}
+            if got != {k: expect.get(k, 0) for k in want}:
+                raise AssertionError(f"olmoe {dtype} {impl} prefill "
+                                     f"launches {got}, want {expect}")
+    main_counts = runs[("bfloat16", "cuda")][2]
+    log(f"olmoe prefill: launches per prefill through the kernels "
+        f"{main_counts}; through the plain versions "
+        f"{runs[('bfloat16', 'torch')][2]}")
+    first = runs[("bfloat16", "cuda")][0]
+    # the check holds the kernels' numerics with the MoE routing pinned
+    # (see _routing_pinned); the unpinned distances are printed beside it
+    free = {dt: within(runs[(dt, "cuda")][0][..., :cfg.vocab],
+                       runs[(dt, "torch")][0][..., :cfg.vocab], 0.0)[0]
+            for dt in ("float32", "bfloat16")}
+    pinned, flips = _routing_pinned(cfg, params, toks[:, :seq])
+    log(f"olmoe routing: recorded in the plain f32 prefill ({cfg.n_layers} "
+        f"layers x {batch * seq} tokens) and replayed; the replayed runs' "
+        f"own choices differing (token expert sets, kept pairs): "
+        + ", ".join(f"{d} {i} {f[0]}, {f[1]}" for (d, i), f in flips.items())
+        + f"; unpinned kernels vs plain max |diff| f32 "
+        f"{free['float32']:.4e}, bf16 {free['bfloat16']:.4e}")
+    for key, lg in pinned.items():
+        runs[key] = (lg,) + runs[key][1:]
+    _check_prefill(cfg.name + " (routing pinned)", runs, 1e-3)
+    step = make_prefill_step(cfg)
+    again = [step(params, toks[:, :seq])[0].float() for _ in range(2)]
+    same = all(torch.equal(first, a) for a in again)
+    log(f"olmoe determinism: three bf16 prefills through the kernels give "
+        f"bit-identical last-position logits: {same}")
+    if not same:
+        raise AssertionError("olmoe bf16 prefills differ from run to run")
+    t_prefill = runs[("bfloat16", "cuda")][3]
+    del runs, again
+    free_cuda()
+
+    # decode after prefill vs the train-mode forward.  The forward's
+    # capacity depends on the tokens in the batch (C = 1.25 T k / E drops
+    # tokens over 8192 of them, never over a decode step's 4), so this
+    # check runs the experts dropless (capacity factor E / k: C = T) in the
+    # prefill, the decode and the forward alike
+    m = cfg.moe
+    dropless = cfg.scaled(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    fwd = {}
+    for dtype in ("float32", "bfloat16"):
+        full, _, _ = apply_model(params, toks, cfg=dropless.scaled(
+            dtype=dtype), mode="train")
+        fwd[dtype] = full[:, seq:, :cfg.vocab].float()
+        del full
+        free_cuda()
+    own = within(fwd["bfloat16"], fwd["float32"], 0.0)[0]
+    step_ms = {}
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", max(0.25, 2 * own))):
+        c = dropless.scaled(dtype=dtype)
+        _, pcache = make_prefill_step(c)(params, toks[:, :seq])
+        cache = _graft(c, pcache, batch, seq + steps)
+        del pcache
+        rows, times = [], []
+        for t in range(seq, seq + steps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            lg, cache, _ = apply_model(params, toks[:, t:t + 1], cfg=c,
+                                       mode="decode", cache=cache)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            rows.append(lg[:, 0, :cfg.vocab].float())
+        step_ms[dtype] = 1e3 * float(np.median(times[1:]))
+        err, ok = within(torch.stack(rows, 1), fwd[dtype], tol)
+        log(f"olmoe decode after prefill {dtype}: {steps} steps vs the "
+            f"train-mode forward (experts dropless), max |diff| {err:.4e} "
+            f"(tol {tol:.4g} abs + rel): {ok}; logits finite: "
+            f"{bool(torch.isfinite(torch.stack(rows)).all())}")
+        if not ok:
+            raise AssertionError(f"olmoe decode after prefill {dtype}: {err}")
+        del cache
+        free_cuda()
+    del fwd
+
+    # one MoE layer at the prefill's shape, and the prefill's MoE share
+    lp = layer_params(params["groups"]["g0"]["p0"], 0)["moe"]
+    x = torch.randn((batch, seq, cfg.d_model), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED)
+                    ).to(torch.bfloat16)
+    out, aux = apply_moe(lp, x, cfg=cfg)
+    if not (torch.isfinite(out).all() and all(torch.isfinite(v)
+                                              for v in aux.values())):
+        raise AssertionError("olmoe MoE layer: non-finite output")
+    moe_ms = cuda_ms(lambda: apply_moe(lp, x, cfg=cfg), 10, 2)
+    C = capacity(cfg, batch * seq)
+    flops = 6 * m.n_experts * C * cfg.d_model * m.d_ff
+    wbytes = sum(lp[k].numel() * lp[k].element_size()
+                 for k in ("wi_gate", "wi_up", "wo"))
+    moe_bound, moe_by = bound_ms(wbytes + 2 * x.numel() * x.element_size(),
+                                 flops, torch.bfloat16)
+    log(f"olmoe MoE layer: T={batch * seq}, C={C}, {moe_ms:.4f} ms a layer "
+        f"(event time, max |out| {float(out.abs().max()):.3f}), bound "
+        f"{moe_bound:.4f} ms ({moe_by}; 6 E C D F = {flops:.4g} FLOPs, "
+        f"{wbytes / 1e9:.3f} GB of expert weights); {card}")
+    del x, out
+    free_cuda()
+    busy, moe_s, n_ranges = _moe_profile(cfg, params, toks[:, :seq])
+    share = ("not measured (the profiler put no device time on the MoE "
+             "ranges)" if moe_s is None
+             else f"{moe_s:.4f} s of {busy:.4f} s busy = {moe_s / busy:.4f}")
+    log(f"olmoe MoE share of the prefill's device busy time: {share} "
+        f"({n_ranges} layer ranges); {cfg.n_layers} x the layer's event "
+        f"time = {cfg.n_layers * moe_ms / 1e3:.4f} s; {card}")
+    expert_bytes = sum(
+        w.numel() * w.element_size() for g in params["groups"].values()
+        for lp in g.values() if "moe" in lp
+        for k, w in lp["moe"].items() if k in ("wi_gate", "wi_up", "wo"))
+    dec_bound = expert_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"olmoe times: prefill {batch} x {seq} bf16 through the kernels "
+        f"{1e3 * t_prefill:.1f} ms host time; decode step (batch {batch}, "
+        f"every expert read: C = T) bf16 {step_ms['bfloat16']:.2f} ms, f32 "
+        f"{step_ms['float32']:.2f} ms host time, bound {dec_bound:.4f} ms "
+        f"(bytes: {expert_bytes / 1e9:.2f} GB of expert weights a step); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; {card}")
+    free_cuda()
+
+    phase_dense_serve(cfg, params, card)
+    try:
+        ServeEngine(cfg, params, kv_store="paged", kv_storage="device",
+                    device=DEV, page_size=PAGE, num_pages=64, max_batch=4)
+    except ValueError as e:
+        log(f"olmoe paged serving refused: ValueError: {e}")
+    else:
+        raise AssertionError("the paged path took an MoE config")
+    del params
+    free_cuda()
+    return main_counts["flash_attention"]
+
+
+# ----------------------------------------------------------------------------
 
 
 def _model(cfg, note: str):
@@ -1490,9 +1895,19 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--smr-run"]:
         return smr_run_main(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--structures"]:
+        phase_structures()      # the process start_structures starts
+        return 0
     card = phase_card()
-    phase_build()
-    kres = phase_kernels()
+    structures = start_structures()      # host work, beside the card's
+    try:
+        phase_build()
+        kres = phase_kernels()
+    except BaseException:
+        structures[0].kill()
+        structures[0].wait()
+        raise
+    finish_structures(structures)
 
     cfg = starcoder2_7b.CONFIG
     params = _model(cfg, "no depth cut")
@@ -1524,6 +1939,9 @@ def main() -> int:
     del params
     free_cuda()
 
+    # this slice's path runs flash at olmoe's shape: its line reads there
+    launches["flash_attention"] = phase_olmoe(card)
+
     kernels = []
     for name in REPLACES:
         err_f32, t_f32 = kres[(name, torch.float32)]
@@ -1535,7 +1953,7 @@ def main() -> int:
             ms, plain, bound, lib = t_bf16
             by = "bytes"
         elif name == "flash_attention":
-            ms, plain, bound, by, lib = t_bf16["zamba2 prefill"]
+            ms, plain, bound, by, lib = t_bf16["olmoe prefill"]
         else:
             ms, plain, bound, by, lib, _ = t_bf16["mamba2"]
         kernels.append({

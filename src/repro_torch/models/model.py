@@ -2,13 +2,15 @@
 
 The reference's one forward, :func:`apply_model`, for the architectures
 whose layers this package has: GQA attention (full and sliding window),
-Mamba2, RWKV-6, zamba2's weight-tied shared attention block, and the
-dense MLP.  MoE, MLA, cross attention, the encoder and the MTP head come
-with their own slices of the port and raise :class:`NotImplementedError`
-naming them.
+Mamba2, RWKV-6, zamba2's weight-tied shared attention block, the dense
+MLP and the MoE FFN (dense dispatch, ``models/moe.py``).  MLA, cross
+attention, the encoder and the MTP head come with their own slices of the
+port and raise :class:`NotImplementedError` naming them.
 
 Modes:
   train:   full-seq forward (a forward only here); returns (logits, None, aux)
+           (aux: the MoE losses ``moe_aux``/``moe_z`` summed in f32 over
+           every MoE layer, zeros without one; every mode returns them)
   prefill: full-seq forward, returns (last-position logits, cache)
   decode:  one token per sequence against the cache, returns (logits, cache)
 
@@ -35,6 +37,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import layers as L
 from repro_torch.models.attention import _CROSS, _MLA, apply_attn, attn_specs
+from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.ssm import (_st_write, apply_mamba2, apply_rwkv6,
                                     mamba2_dims, mamba2_specs, rwkv6_dims,
                                     rwkv6_specs)
@@ -44,8 +47,6 @@ Spec = L.Spec
 __all__ = ["apply_model", "build_specs", "cache_shapes", "check_paged_support",
            "init_cache", "init_params"]
 
-_MOE = ("MoE layers (models/moe.py) are not ported yet: they come with the "
-        "MoE slice of the port")
 _ENCODER = ("encoder groups (enc-dec, whisper) are not ported yet: they come "
             "with the cross-attention/encoder slice of the port")
 _MTP = ("the multi-token-prediction head is not ported yet: it comes with the "
@@ -107,7 +108,8 @@ def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
         if cfg.post_norms:
             s["post_norm2"] = Spec((D,), ("embed",), "zeros")
     elif spec.mlp == "moe":
-        raise NotImplementedError(_MOE)
+        s["norm2"] = Spec((D,), ("embed",), "zeros")
+        s["moe"] = moe_specs(cfg)
     return s
 
 
@@ -229,9 +231,10 @@ def layer_params(gp, rep: int):
     return gp[rep]
 
 
-def _apply_layer(lp, spec: LayerSpec, x, *, cfg, mode, lcache, pos,
+def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
                  shared_params, layer_idx=None, impl=None):
-    """One pattern-position layer.  Returns (x, new_lcache)."""
+    """One pattern-position layer.  Returns (x, new_lcache, aux), the MoE
+    losses added to ``aux``."""
     new_cache: Dict[str, Any] = {}
 
     if spec.mixer == "attn":
@@ -290,13 +293,17 @@ def _apply_layer(lp, spec: LayerSpec, x, *, cfg, mode, lcache, pos,
             o = L.rms_norm(o, lp["post_norm2"], cfg.norm_eps)
         x = x + o
     elif spec.mlp == "moe":
-        raise NotImplementedError(_MOE)
+        h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+        o, a = apply_moe(lp["moe"], h, cfg=cfg)
+        aux = {k: aux[k] + a[k] for k in aux}
+        x = x + o
 
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
                 shared_params, impl=None):
+    aux = _zero_aux(x.device)
     new_cache: Dict[str, Any] = {}
     for gi, g in enumerate(groups_def):
         gp = groups_params[f"g{gi}"]
@@ -309,13 +316,15 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
                 key = f"p{pi}"
                 if mode == "decode":
                     # the STACKED cache is written at [layer, ...] in place
-                    x, _ = _apply_layer(
-                        lp[key], ls, x, cfg=cfg, mode=mode, lcache=gc.get(key),
+                    x, _, aux = _apply_layer(
+                        lp[key], ls, x, aux, cfg=cfg, mode=mode,
+                        lcache=gc.get(key),
                         pos=pos, shared_params=shared_params, layer_idx=rep,
                         impl=impl)
                     continue
-                x, nc = _apply_layer(
-                    lp[key], ls, x, cfg=cfg, mode=mode, lcache=None, pos=pos,
+                x, nc, aux = _apply_layer(
+                    lp[key], ls, x, aux, cfg=cfg, mode=mode, lcache=None,
+                    pos=pos,
                     shared_params=shared_params, impl=impl)
                 if mode == "prefill" and nc:
                     per = produced.setdefault(key, {})
@@ -327,7 +336,7 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
             new_cache[f"g{gi}"] = {
                 key: {name: torch.stack(ts) for name, ts in per.items()}
                 for key, per in produced.items()}
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def apply_model(
@@ -352,7 +361,7 @@ def apply_model(
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
     pos = cache["pos"] if (cache is not None and mode == "decode") else None
-    x, new_cache = _run_groups(params["groups"], cfg.groups, x, cfg=cfg,
+    x, new_cache, aux = _run_groups(params["groups"], cfg.groups, x, cfg=cfg,
                                mode=mode, cache=cache if mode == "decode"
                                else None, pos=pos,
                                shared_params=params.get("shared_attn"),
@@ -380,4 +389,4 @@ def apply_model(
         out_cache = {"pos": torch.full((B,), S, dtype=torch.int32,
                                        device=dev),
                      "groups": new_cache}
-    return logits, out_cache, _zero_aux(dev)
+    return logits, out_cache, aux

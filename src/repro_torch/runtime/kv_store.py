@@ -246,6 +246,22 @@ class PagedKVStore:
         self.bytes_written += written
         return written
 
+    def append_token(self, block: int, slot: int, k, v,
+                     layer: Optional[int] = None) -> int:
+        """Write one decoded token's K/V into ``block`` at ``slot`` -- a
+        single-slot scatter.  With ``layer=None`` the arrays are ``(L, Hkv,
+        hd)`` and every layer is written; with a layer index they are
+        ``(Hkv, hd)``.  Batched decode steps should prefer
+        :meth:`append_tokens` (one scatter for the whole batch row-set)."""
+        index = self.scatter_index([block], [slot])
+        if layer is None:
+            self._scatter(None, index, k[:, None], v[:, None])
+        else:
+            self._scatter(layer, index, k[None], v[None])
+        written = 2 * int(np.prod(k.shape)) * self._k.element_size()
+        self.bytes_written += written
+        return written
+
     def append_tokens(self, blocks: Sequence[int], slots: Sequence[int],
                       k, v, layer: int, *,
                       index: Optional[ScatterIndex] = None) -> int:

@@ -177,6 +177,31 @@ def test_prepared_index_pages_match_numpy_index_and_reference_store(layer,
     assert prepared.bytes_written == plain.bytes_written == ref.bytes_written
 
 
+@pytest.mark.parametrize("layer", [1, None])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("storage", ["host", "device"])
+def test_append_token_matches_reference_store(storage, dtype, layer):
+    """Single-slot writes (``append_token``) of one layer's ``(Hkv, hd)`` or
+    every layer's ``(L, Hkv, hd)``, from numpy and from tensors, leave the
+    reference store's pages bit for bit, and count the bytes it counts."""
+    rng = np.random.default_rng(23)
+    L, Hkv, hd = len(kv_layer_order(CFG)), CFG.n_kv_heads, CFG.head_dim_
+    mine = _store(storage, dtype=dtype)
+    ref = JStore(JCFG, 8, PAGE, dtype=jnp.dtype(dtype), storage=storage)
+    shape = (Hkv, hd) if layer is not None else (L, Hkv, hd)
+    for i, (blk, slot) in enumerate(((4, 0), (4, 3), (0, 2), (4, 3))):
+        k = np.asarray(jnp.asarray(rng.standard_normal(shape), dtype))
+        v = np.asarray(jnp.asarray(rng.standard_normal(shape), dtype))
+        want = ref.append_token(blk, slot, k, v, layer=layer)
+        if i % 2:
+            k, v = numpy_to_tensor(k), numpy_to_tensor(v)
+        assert mine.append_token(blk, slot, k, v, layer=layer) == want
+    for got, want in ((mine.k, ref.k), (mine.v, ref.v)):
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32))
+    assert mine.bytes_written == ref.bytes_written > 0
+
+
 def test_forward_builds_its_scatter_index_once_not_per_layer():
     """A decode step and a prefill chunk each build (and upload) one
     scatter index for all their layers' writes: the store's
