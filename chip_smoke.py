@@ -4,10 +4,12 @@ each against its plain PyTorch version, serve starcoder2-7b through the
 paged runtime (under the native policy, under every SMR scheme of the
 registry, and replaying a multi-tenant trace), run zamba2-2.7b's and
 rwkv6-1.6b's dense prefill through the flash-attention and linear-scan
-kernels, serve zamba2-2.7b densely, run olmoe-1b-7b's MoE model end to
-end, and compare every path's logits through the kernels with the same
-through the plain versions; beside them, on the host, the paper's
-data-structure grid and robustness gauntlet.
+kernels, serve zamba2-2.7b densely, run olmoe-1b-7b's MoE model,
+deepseek-v3's MLA (cut in depth), llama-3.2-vision's cross attention (cut
+in depth) and whisper-small's encoder and decoder end to end, and compare
+every path's logits through the kernels with the same through the plain
+versions; beside them, on the host, the paper's data-structure grid and
+robustness gauntlet.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -25,10 +27,17 @@ Phases (any failure raises and exits non-zero; none is caught):
               batch with a length-0 row, poisoned dead pages in a wider
               table, a 32-row prefill chunk, and a long-context batch of 7
               rows of 2048-4096 tokens and one of 8192) and flash
-              attention (zamba2's prefill B=4, S=2048, H=Hkv=32, D=80,
-              causal; a gemma2 local layer B=1, S=8192, H=32, Hkv=16,
-              D=128, window 4096, softcap 50; and the small edge cases of
-              ``FLASH_EDGE_CASES``) within 2e-5 (f32) / 2e-2 (bf16); the
+              attention (``FLASH_SHAPES``: zamba2's prefill B=4, S=2048,
+              H=Hkv=32, D=80, causal; a gemma2 local layer B=1, S=8192,
+              H=32, Hkv=16, D=128, window 4096, softcap 50; olmoe's
+              prefill; and the call shapes of phases 9-10: MLA B=2,
+              S=2048, H=Hkv=128, D=192, Dv=128, causal; whisper's encoder
+              B=4, S=1500, H=12, D=64, bidirectional, its decoder's self
+              attention S=448, causal, and cross attention Sq=448,
+              Sk=1500; llama-vision's self attention B=2, S=2048, H=64,
+              Hkv=8, D=128, causal, and cross attention Sq=2048, Sk=1601;
+              and the small edge cases of ``FLASH_EDGE_CASES``) within
+              2e-5 (f32) / 2e-2 (bf16); the
               scatter bit-exact through numpy indices and through a
               prepared index, and timed both ways beside two index_put_
               calls; the linear scan (mamba2 B=4,
@@ -106,13 +115,45 @@ Phases (any failure raises and exits non-zero; none is caught):
               MoE share of the prefill's device time (torch.profiler);
               prefill and decode times and peak memory; dense serving of
               the zamba2 traffic; the paged path's ValueError.
+9. mla     -- deepseek-v3-671b at full width (d=7168, 128 heads, MLA ranks
+              1536/512, 256 experts top-8 + 1 shared, vocab 129280, MTP
+              parameters), cut in depth from 3 dense + 58 MoE layers to 3
+              dense + 1 MoE (15.8e9 parameters): make_prefill_step on 2 x
+              2048 tokens (4 flash launches at D=192 / Dv=128), kernels vs
+              plain in f32 and bf16 on the dense group alone (3 MLA
+              layers) and on the 3 + 1 cut, where the f32 runs hold the
+              expert weights in f32 for their span (cast at use, they
+              would not fit beside the bf16 ones) and the plain f32 run's
+              MoE routing is replayed in the others; three bf16 prefills
+              bit-equal; 8 absorbed decode steps after the prefill vs the
+              train-mode forward in f32 and bf16, on the dense group and
+              on the 3 + 1 cut (there the f32 forward's routing replayed
+              in the bf16 forward and in every decode step); 8 greedy
+              make_serve_step steps on
+              the 3 + 1 cut; flash at MLA's shape beside SDPA and its
+              bound; prefill host and device busy time, decode step time
+              against its bytes bound, peak memory; dense serving (4
+              requests of 16-48 tokens, 8 new each); the paged path's
+              ValueError.
+10. cross  -- llama-3.2-vision-90b at full width (d=8192, 64/8 heads,
+              d_ff=28672) cut from 20 pattern repeats to 2 (8 self + 2
+              cross layers), 2 x 2048 tokens over 1601 image tokens (10
+              flash launches a prefill); whisper-small whole (12 encoder +
+              12 decoder patterns), 4 x 448 tokens over 1500 frames (36
+              flash launches); frontends 0.02 N(0, 1) from the seed.  For
+              each, kernels vs plain in bf16 and f32, 8 decode steps after
+              the prefill vs the train-mode forward, flash at each of its
+              call shapes beside SDPA and its bound, and the paged path's
+              ValueError.
 
-The last two lines of standard output are the kernels' JSON line and the
-device JSON line.  Without CUDA it exits non-zero before printing either.
+After each group of phases a ``time: ... done at N s`` line gives the
+time since the card phase began.  The last two lines of standard output
+are the kernels' JSON line and the device JSON line.  Without CUDA it exits non-zero before printing either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -130,8 +171,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import (olmoe_1b_7b, rwkv6_1p6b,  # noqa: E402
-                                 starcoder2_7b, zamba2_2p7b)
+from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
+                                 llama32_vision_90b, olmoe_1b_7b, rwkv6_1p6b,
+                                 starcoder2_7b, whisper_small, zamba2_2p7b)
 from repro_torch.core.gauntlet import (gauntlet_cell,  # noqa: E402
                                        run_gauntlet, summarize)
 from repro_torch.core.smr.registry import PAPER_SET  # noqa: E402
@@ -559,10 +601,18 @@ def check_scatter(rng, dtype, L=32):
 
 
 FLASH_SHAPES = {
-    # name: (B, S, H, Hkv, D, window, softcap)
-    "zamba2 prefill": (4, 2048, 32, 32, 80, 0, 0.0),
-    "gemma2 local": (1, 8192, 32, 16, 128, 4096, 50.0),
-    "olmoe prefill": (4, 2048, 16, 16, 128, 0, 0.0),
+    # name: (B, Sq, Sk, H, Hkv, D, Dv, causal, window, softcap)
+    "zamba2 prefill": (4, 2048, 2048, 32, 32, 80, 80, True, 0, 0.0),
+    "gemma2 local": (1, 8192, 8192, 32, 16, 128, 128, True, 4096, 50.0),
+    "olmoe prefill": (4, 2048, 2048, 16, 16, 128, 128, True, 0, 0.0),
+    # this slice's callers: MLA's explicit form, an encoder's bidirectional
+    # self attention, cross attention over a frontend's tokens, GQA
+    "deepseek MLA": (2, 2048, 2048, 128, 128, 192, 128, True, 0, 0.0),
+    "whisper encoder": (4, 1500, 1500, 12, 12, 64, 64, False, 0, 0.0),
+    "whisper self": (4, 448, 448, 12, 12, 64, 64, True, 0, 0.0),
+    "whisper cross": (4, 448, 1500, 12, 12, 64, 64, False, 0, 0.0),
+    "llama-vision self": (2, 2048, 2048, 64, 8, 128, 128, True, 0, 0.0),
+    "llama-vision cross": (2, 2048, 1601, 64, 8, 128, 128, False, 0, 0.0),
 }
 # (B, Sq, Sk, H, Hkv, D, Dv, causal, window, softcap): the flash kernel's
 # edges, the cases of tests/test_torch_dense_kernels.py's card test (this
@@ -609,10 +659,20 @@ def _flash_pairs(S: int, window: int) -> int:
     return int((np.minimum(n, window) if window else n).sum())
 
 
+def flash_work(shape):
+    """(bytes, operations) of one flash call at a FLASH_SHAPES entry, for
+    an element size of 1: each input read once and the output written
+    once; 2 (D + Dv) operations per unmasked (query, key, head)."""
+    B, Sq, Sk, H, Hkv, D, Dv, causal, window, _ = shape
+    elems = B * (Sq * H * D + Sk * Hkv * (D + Dv) + Sq * H * Dv)
+    pairs = _flash_pairs(Sq, window) if causal else Sq * Sk
+    return elems, 2 * (D + Dv) * B * H * pairs
+
+
 def check_flash(g, dtype):
-    """Flash attention against its plain version at zamba2's prefill shape
-    and a gemma2 local layer; returns the worst error and, per shape, the
-    kernel / plain / bound / SDPA times."""
+    """Flash attention against its plain version at the main paths' shapes
+    (``FLASH_SHAPES``) and the edge cases; returns the worst error and, per
+    shape, the kernel / plain / bound / SDPA times."""
     tol = ATT_TOL[dtype]
     worst, times = 0.0, {}
     for case in FLASH_EDGE_CASES:
@@ -630,34 +690,34 @@ def check_flash(g, dtype):
         if not ok:
             raise AssertionError(f"flash_attention {case} {dtype}: {err}")
         worst = max(worst, err)
-    for name, (B, S, H, Hkv, D, window, cap) in FLASH_SHAPES.items():
-        q = _randn(g, (B, S, H, D), dtype)
-        k = _randn(g, (B, S, Hkv, D), dtype)
-        v = _randn(g, (B, S, Hkv, D), dtype)
-        kw = dict(window=window, softcap=cap)
+    for name, shape in FLASH_SHAPES.items():
+        B, Sq, Sk, H, Hkv, D, Dv, causal, window, cap = shape
+        q = _randn(g, (B, Sq, H, D), dtype)
+        k = _randn(g, (B, Sk, Hkv, D), dtype)
+        v = _randn(g, (B, Sk, Hkv, Dv), dtype)
+        kw = dict(causal=causal, window=window, softcap=cap)
         got = fa.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err, ok = within(got, want, tol)
-        log(f"  flash_attention {str(dtype)[6:]} {name}: max |err| "
+        log(f"  flash_attention {str(dtype)[6:]} {name} {shape}: max |err| "
             f"{err:.3e} (tol {tol:g} abs + rel)")
         if not ok:
             raise AssertionError(f"flash_attention {name} {dtype}: {err}")
         worst = max(worst, err)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10, 2)
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 3, 1)
-        bytes_ = (q.numel() + k.numel() + v.numel() + got.numel()) \
-            * q.element_size()
-        flops = 4 * D * B * H * _flash_pairs(S, window)
-        bound, by = bound_ms(bytes_, flops, dtype)
+        elems, flops = flash_work(shape)
+        bound, by = bound_ms(elems * q.element_size(), flops, dtype)
         lib = None
         if not window and not cap:
             # the same function in one PyTorch call, as a yardstick only
+            # (its efficient backends take Dv != D, Sq != Sk and GQA)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = cuda_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(qt, kt, vt,
-                                                        is_causal=True),
-                          10, 2)
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, is_causal=causal,
+                              enable_gqa=H != Hkv), 10, 2)
             del qt, kt, vt
         times[name] = (ms, plain, bound, by, lib)
         rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" + (
@@ -1293,29 +1353,30 @@ def _graft(cfg, pcache, batch: int, seq: int):
     return cache
 
 
-def _prefill_runs(cfg, params, toks):
+def _prefill_runs(cfg, params, toks, frontend=None):
     """make_prefill_step through the kernels and through the plain
-    versions, in bf16 and f32 compute: {(dtype, impl): (last logits, cache,
-    launch counts, host seconds of a second, warm call)}."""
+    versions, in bf16 and f32 compute: {(dtype, impl): (last logits over
+    the real vocabulary, cache, launch counts, host seconds of a second,
+    warm call)}."""
     runs = {}
     for dtype in ("bfloat16", "float32"):
         c = cfg.scaled(dtype=dtype)
         for impl in ("cuda", "torch"):
             step = make_prefill_step(c, impl=impl)
             build.reset_launch_counts()
-            logits, cache = step(params, toks)
+            logits, cache = step(params, toks, frontend)
             torch.cuda.synchronize()
             counts = dict(build.launch_counts)
             t0 = time.monotonic()
-            step(params, toks)
+            step(params, toks, frontend)
             torch.cuda.synchronize()
-            runs[(dtype, impl)] = (logits.float(), cache, counts,
-                                   time.monotonic() - t0)
+            runs[(dtype, impl)] = (logits.float()[..., :cfg.vocab], cache,
+                                   counts, time.monotonic() - t0)
             free_cuda()
     return runs
 
 
-def _check_prefill(name, runs, f32_tol: float):
+def _check_prefill(name, runs, f32_tol: float) -> None:
     """Kernels vs plain: f32 within ``f32_tol`` abs + rel (summation order
     through every layer); bf16 within max(5e-2, 2 e), e the plain path's
     own bf16 distance from its f32 logits (the two bf16 paths round in
@@ -1339,6 +1400,69 @@ def _check_prefill(name, runs, f32_tol: float):
             f"{runs[(dtype, 'cuda')][2]}")
         if not ok:
             raise AssertionError(f"{name} {dtype} prefill logits differ")
+
+
+def _decode_vs_forward(label, cfg, params, toks, seq, steps, runs,
+                       frontend=None, pin=None):
+    """The bf16 and f32 prefill caches through the kernels (``runs``)
+    grafted into init_cache, then ``steps`` decode steps against the
+    train-mode forward over the same tokens: f32 within 1e-3, bf16 within
+    max(0.25, 2 e), e the forward's own bf16 distance from its f32 logits
+    (the rule of tests/test_models_smoke.py).  With ``pin`` (a fresh
+    _Pin), each dtype's pass holds the expert weights in its dtype
+    (_experts_in), the f32 forward's MoE routing is recorded, and the bf16
+    forward and every decode step replay it at their tokens.  Returns each
+    dtype's median decode step host time in ms (the first step left
+    out)."""
+    batch = toks.shape[0]
+    fwd, rows, step_ms = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.scaled(dtype=dtype)
+        held = (contextlib.nullcontext() if pin is None
+                else _experts_in(params, dtype))
+        with held:
+            with (contextlib.nullcontext() if pin is None
+                  else pin.run(("forward", dtype))):
+                full, _, _ = apply_model(params, toks, cfg=c, mode="train",
+                                         frontend=frontend)
+            fwd[dtype] = full[:, seq:, :cfg.vocab].float()
+            del full
+            free_cuda()
+            cache = _graft(c, runs[(dtype, "cuda")][1], batch, seq + steps)
+            out, times = [], []
+            for t in range(seq, seq + steps):
+                with (contextlib.nullcontext() if pin is None
+                      else pin.run(("decode", dtype), pos=t)):
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    lg, cache, _ = apply_model(params, toks[:, t:t + 1],
+                                               cfg=c, mode="decode",
+                                               cache=cache)
+                    torch.cuda.synchronize()
+                times.append(time.monotonic() - t0)
+                out.append(lg[:, 0, :cfg.vocab].float())
+            rows[dtype] = torch.stack(out, 1)
+            step_ms[dtype] = 1e3 * float(np.median(times[1:]))
+            del cache, out
+            free_cuda()
+    if pin is not None:
+        log(f"{label}routing: recorded in the f32 forward and replayed in "
+            f"the bf16 forward and each decode step; their own choices "
+            f"differing (token expert sets, kept pairs; a decode step keeps "
+            f"every pair it routes, C = T, where the forward's capacity "
+            f"drops some): " + ", ".join(
+                f"{w} {d} {f[0]}, {f[1]}" for (w, d), f in pin.flips.items()
+                if (w, d) != ("forward", "float32")))
+    own = within(fwd["bfloat16"], fwd["float32"], 0.0)[0]
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", max(0.25, 2 * own))):
+        err, ok = within(rows[dtype], fwd[dtype], tol)
+        log(f"{label}decode after prefill {dtype}: {steps} steps vs the "
+            f"train-mode forward, max |diff| {err:.4e} (tol {tol:.4g} abs + "
+            f"rel, the rule of tests/test_models_smoke.py; e {own:.4e}): "
+            f"{ok}")
+        if not ok:
+            raise AssertionError(f"{label}decode after prefill {dtype}: {err}")
+    return step_ms
 
 
 def phase_dense_prefill(cfg, params, batch: int = 4, seq: int = 2048,
@@ -1365,48 +1489,39 @@ def phase_dense_prefill(cfg, params, batch: int = 4, seq: int = 2048,
         f"kernels {main_counts}; through the plain versions "
         f"{runs[('bfloat16', 'torch')][2]}")
     _check_prefill(cfg.name, runs, 1e-3)
+    _decode_vs_forward("", cfg, params, toks, seq, steps, runs)
+    _greedy_steps("", cfg, params, runs[("bfloat16", "cuda")], seq, steps)
+    del runs
+    free_cuda()
+    return main_counts
 
-    # decode after prefill vs the train-mode forward over the same tokens
-    fwd = {}
-    for dtype in ("float32", "bfloat16"):
-        c = cfg.scaled(dtype=dtype)
-        full, _, _ = apply_model(params, toks, cfg=c, mode="train")
-        fwd[dtype] = full[:, seq:].float()
-        del full
-        free_cuda()
-    own = within(fwd["bfloat16"], fwd["float32"], 0.0)[0]
-    for dtype, tol in (("float32", 1e-3), ("bfloat16", max(0.25, 2 * own))):
-        c = cfg.scaled(dtype=dtype)
-        cache = _graft(c, runs[(dtype, "cuda")][1], batch, seq + steps)
-        rows = []
-        for t in range(seq, seq + steps):
-            lg, cache, _ = apply_model(params, toks[:, t:t + 1], cfg=c,
-                                       mode="decode", cache=cache)
-            rows.append(lg[:, 0].float())
-        err, ok = within(torch.stack(rows, 1), fwd[dtype], tol)
-        log(f"decode after prefill {dtype}: {steps} steps vs the train-mode "
-            f"forward, max |diff| {err:.4e} (tol {tol:.4g} abs + rel, the "
-            f"rule of tests/test_models_smoke.py): {ok}")
-        if not ok:
-            raise AssertionError(f"decode after prefill {dtype}: {err}")
-        del cache
+
+def _greedy_steps(label, cfg, params, run, seq: int, steps: int):
+    """``steps`` greedy make_serve_step steps (bf16) from a bf16 prefill
+    run's last logits and cache; every token in the vocabulary.  Returns
+    the median step host time in ms (the first step left out)."""
+    logits, pcache = run[0], run[1]
     c = cfg.scaled(dtype="bfloat16")
-    cache = _graft(c, runs[("bfloat16", "cuda")][1], batch, seq + steps)
+    cache = _graft(c, pcache, logits.shape[0], seq + steps)
     serve_step = make_serve_step(c)
-    tok = runs[("bfloat16", "cuda")][0].argmax(-1).to(torch.int32)[:, None]
-    gen = []
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    gen, times = [], []
     for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
         tok, cache = serve_step(params, cache, tok)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
         gen.append(tok)
         tok = tok[:, None]
     gen = torch.stack(gen, 1).cpu()
     if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
         raise AssertionError(f"make_serve_step tokens out of range: {gen}")
-    log(f"make_serve_step: {steps} greedy steps after the prefill, row 0 "
-        f"tokens {gen[0].tolist()}, cache pos {cache['pos'].tolist()}")
-    del runs, cache, fwd
+    log(f"{label}make_serve_step: {steps} greedy steps after the prefill, "
+        f"row 0 tokens {gen[0].tolist()}, cache pos {cache['pos'].tolist()}")
+    del cache
     free_cuda()
-    return main_counts
+    return 1e3 * float(np.median(times[1:]))
 
 
 def phase_rwkv_prefill(cfg, params, batch: int = 2, seq: int = 2048):
@@ -1423,17 +1538,21 @@ def phase_rwkv_prefill(cfg, params, batch: int = 2, seq: int = 2048):
     free_cuda()
 
 
-def phase_dense_serve(cfg, params, card: str, max_new: int = 8):
-    """ServeEngine(kv_store="dense") on zamba2-2.7b or olmoe-1b-7b: 6
-    requests of 32-96 prompt tokens, 3 sharing a 32-token prefix (the first
-    of them goes in alone until its prefix is published, so the other two
-    can hit it).  This path prefills token by token through decode mode, as
-    the reference's dense engine does: it launches neither new kernel."""
+def phase_dense_serve(cfg, params, card: str, max_new: int = 8,
+                      shared_len: int = 32, tails=(5, 20, 40),
+                      alone=(32, 60, 96)):
+    """ServeEngine(kv_store="dense"): requests of ``shared_len`` + each of
+    ``tails`` prompt tokens sharing a prefix (the first of them goes in
+    alone until its prefix is published, so the others can hit it) and of
+    each of ``alone``; by default the zamba2 traffic, 6 requests of 32-96
+    tokens.  This path prefills token by token through decode mode, as the
+    reference's dense engine does: it launches no kernel of this
+    package."""
     rng = np.random.default_rng(SEED + 5)
-    shared = rng.integers(1, cfg.vocab, 32).tolist()
+    shared = rng.integers(1, cfg.vocab, shared_len).tolist()
     prompts = [shared + rng.integers(1, cfg.vocab, n).tolist()
-               for n in (5, 20, 40)]
-    prompts += [rng.integers(1, cfg.vocab, n).tolist() for n in (32, 60, 96)]
+               for n in tails]
+    prompts += [rng.integers(1, cfg.vocab, n).tolist() for n in alone]
     eng = ServeEngine(cfg, params, kv_store="dense", device=DEV,
                       smr="EpochPOP-pool", n_engines=2, prefix_cache=True,
                       page_size=PAGE, num_pages=128, max_seq=128,
@@ -1488,22 +1607,9 @@ def phase_dense_profile(cfg, params, batch: int = 4, seq: int = 2048,
                         top: int = 8):
     """One bf16 zamba2 prefill through the kernels under torch.profiler,
     after a warm call."""
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.default_rng(SEED + 4)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq))).to(DEV)
-    step = make_prefill_step(cfg)
-    step(params, toks)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        step(params, toks)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    log(f"dense profile: {cfg.name} prefill of {batch} x {seq} tokens")
-    report_profile(prof, wall, 1, cfg.n_layers, top)
-    free_cuda()
+    _prefill_profile("dense", cfg, params, toks, top=top)
 
 
 # ----------------------------------------------------------------------------
@@ -1659,65 +1765,132 @@ def _moe_profile(cfg, params, toks, top: int = 6):
     return busy, (moe_s if moe_s > 0 else None), len(ranges)
 
 
-def _routing_pinned(cfg, params, toks):
-    """The prefill through the plain versions in f32, recording each MoE
-    layer's routing (each token's experts and each expert's kept tokens),
-    then through the kernels in f32 and through both paths in bf16 with
-    that routing replayed.  The router's choices are discrete: a
-    perturbation of the flash kernel's size (~5e-7 in f32) flips a near-tie
-    somewhere among 16 layers x 8192 tokens x 64 experts, and the flipped
-    token's output then differs by a whole expert's share; bf16 rounding
-    flips many.  With one run's choices pinned, the runs differ only by the
-    kernels' and the dtypes' numerics.  Returns {(dtype, impl): last
-    logits over the real vocabulary} and, per replayed run, how many of
-    its own choices differ from the recorded ones: tokens whose expert set
-    differs, and (expert, token) pairs kept by one run only."""
-    real, rec, at = moe_mod.route, [], [0]
-    flips = {}
+PIN_RUNS = (("float32", "torch"), ("float32", "cuda"), ("bfloat16", "torch"),
+            ("bfloat16", "cuda"))
 
-    def kept(cw, ci, T):
+
+class _Pin:
+    """One run's MoE routing, recorded and replayed in others.  The
+    router's choices are discrete: a perturbation of the flash kernel's
+    size (~5e-7 in f32) flips a near-tie somewhere among olmoe's 16 layers
+    x 8192 tokens x 64 experts, and the flipped token's output then differs
+    by a whole expert's share; bf16 rounding flips many.  With one run's
+    choices pinned, the runs differ only by the kernels' and the dtypes'
+    numerics.  The first ``run`` records each MoE call's (top_i, cw, ci);
+    each later one replays them in call order and counts in
+    ``flips[key]`` its own choices that differ: tokens whose expert set
+    differs, and (expert, token) pairs kept by one run only."""
+
+    def __init__(self):
+        self.rec, self.flips = [], {}
+
+    @staticmethod
+    def _kept(cw, ci, T):
         m = torch.zeros((cw.shape[0], T + 1), dtype=torch.bool, device=DEV)
         return m.scatter_(1, torch.where(cw > 0, ci, T), True)[:, :T]
 
-    def record(p, xt, cfg):
-        out = real(p, xt, cfg)
-        rec.append(out)
-        return out
+    def _at_step(self, j, pos, B, C):
+        """The recorded (forward's) call ``j`` at a decode step's tokens,
+        each row's token at ``pos``: those tokens' experts, and each
+        expert's recorded weights for them ordered as route's top-C
+        orders them."""
+        top_i, cw, ci, _ = self.rec[j]
+        T = top_i.shape[0]
+        idx = torch.arange(B, device=DEV) * (T // B) + pos
+        w = torch.zeros((cw.shape[0], T + 1), dtype=cw.dtype, device=DEV)
+        w = w.scatter_(1, torch.where(cw > 0, ci, T), cw)[:, :T]
+        cw_s, ci_s = moe_mod._top_k(w[:, idx], C)
+        return top_i[idx], cw_s, ci_s
 
-    def replay(key):
-        flips[key] = [0, 0]
+    @contextlib.contextmanager
+    def run(self, key, pos=None):
+        """Route through the pin; ``pos``: a decode step at this position
+        replays the recorded forward's choices at its tokens."""
+        real, at, recording = moe_mod.route, [0], not self.rec
+        flips = self.flips.setdefault(key, [0, 0])
 
         def route(p, xt, cfg):
-            own, want = real(p, xt, cfg), rec[at[0]]
-            at[0] += 1
+            own = real(p, xt, cfg)
+            if recording:
+                self.rec.append(own)
+                return own
             T = xt.shape[0]
-            flips[key][0] += int((own[0].sort(-1).values
-                                  != want[0].sort(-1).values).any(-1).sum())
-            flips[key][1] += int((kept(*own[1:3], T)
-                                  != kept(*want[1:3], T)).sum())
+            want = (self.rec[at[0]][:3] if pos is None else
+                    self._at_step(at[0], pos, T, own[2].shape[1]))
+            at[0] += 1
+            flips[0] += int((own[0].sort(-1).values
+                             != want[0].sort(-1).values).any(-1).sum())
+            flips[1] += int((self._kept(*own[1:3], T)
+                             != self._kept(*want[1:3], T)).sum())
             return want[0], want[1], want[2], own[3]
-        return route
 
-    out = {}
+        moe_mod.route = route
+        try:
+            yield
+        finally:
+            moe_mod.route = real
+        if not recording and at[0] != len(self.rec):
+            raise AssertionError(f"routing replay {key}: {at[0]} of "
+                                 f"{len(self.rec)} layers")
+
+
+@contextlib.contextmanager
+def _experts_in(params, dtype):
+    """The MoE layers' expert weights held in ``dtype`` for the block, then
+    back in their own dtype (bf16 -> f32 -> bf16 is exact).  The forward
+    casts each weight to the compute dtype at use: an f32 pass over
+    deepseek's MoE layer would cast its 11.3e9 expert weights to f32 (45
+    GB) beside the 31.6 GB held; held in f32 they take 45 GB in place of
+    22.5 and the cast at use is none."""
+    moes = [lp["moe"] for g in params["groups"].values() for lp in g.values()
+            if "moe" in lp]
+    names = ("wi_gate", "wi_up", "wo")
+    own = {k: moes[0][k].dtype for k in names} if moes else {}
+
+    def cast(dtypes):
+        for m in moes:
+            for k in names:
+                m[k] = m[k].to(dtypes[k])
+        free_cuda()
+
+    cast({k: getattr(torch, dtype) for k in names})
     try:
-        for dtype, impl in (("float32", "torch"), ("float32", "cuda"),
-                            ("bfloat16", "torch"), ("bfloat16", "cuda")):
-            at[0] = 0
-            moe_mod.route = (record if not rec else replay((dtype, impl)))
-            lg = make_prefill_step(cfg.scaled(dtype=dtype), impl=impl)(
-                params, toks)[0]
-            out[(dtype, impl)] = lg.float()[..., :cfg.vocab]
-            if at[0] not in (0, len(rec)):
-                raise AssertionError(f"routing replay: {at[0]} of "
-                                     f"{len(rec)} layers")
-            free_cuda()
+        yield
     finally:
-        moe_mod.route = real
-    return out, flips
+        cast(own)
+
+
+def _routing_pinned(cfg, params, toks, keys=PIN_RUNS, hold=False):
+    """The prefill through the plain versions in f32, recording each MoE
+    layer's routing, then through the kernels in f32 and through both paths
+    in bf16 with that routing replayed (``keys``: the (dtype, impl) runs in
+    order, the first recording; ``hold``: the expert weights held in each
+    run's dtype, see _experts_in).  Returns {(dtype, impl): (last logits
+    over the real vocabulary, the cache of a run through the kernels,
+    launch counts, host seconds)} as _prefill_runs does, and the replayed
+    runs' flips (see _Pin)."""
+    pin, out = _Pin(), {}
+    for dtype, impl in keys:
+        held = (_experts_in(params, dtype) if hold
+                else contextlib.nullcontext())
+        with held, pin.run((dtype, impl)):
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            lg, cache = make_prefill_step(cfg.scaled(dtype=dtype),
+                                          impl=impl)(params, toks)
+            torch.cuda.synchronize()
+            out[(dtype, impl)] = (lg.float()[..., :cfg.vocab],
+                                  cache if impl == "cuda" else None,
+                                  dict(build.launch_counts),
+                                  time.monotonic() - t0)
+        del lg, cache
+        free_cuda()
+    return out, pin.flips
 
 
 def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
-                steps: int = 4) -> int:
+                steps: int = 4) -> None:
     """olmoe-1b-7b at full width and depth: the prefill through the flash
     kernel vs the plain path (16 flash launches through the kernels, none
     through the plain path; bf16 and f32 compared with the MoE routing
@@ -1725,8 +1898,7 @@ def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
     bf16 prefills bit-equal to the first, decode steps after a prefill
     against the train-mode forward, one MoE layer timed beside its bound,
     the MoE share of the prefill's device time, dense serving, and the
-    paged path's refusal.  Returns the flash launches of one prefill
-    through the kernels."""
+    paged path's refusal."""
     cfg = olmoe_1b_7b.CONFIG
     torch.cuda.reset_peak_memory_stats()
     params = _model(cfg, f"no cut: {cfg.moe.n_experts} experts, top-"
@@ -1735,22 +1907,11 @@ def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
     toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq + steps))
                             ).to(DEV)
     runs = _prefill_runs(cfg, params, toks[:, :seq])
-    want = {"flash_attention": cfg.n_layers, "linear_scan": 0}
-    for dtype in ("bfloat16", "float32"):
-        for impl, expect in (("cuda", want), ("torch", {})):
-            got = {k: runs[(dtype, impl)][2][k] for k in want}
-            if got != {k: expect.get(k, 0) for k in want}:
-                raise AssertionError(f"olmoe {dtype} {impl} prefill "
-                                     f"launches {got}, want {expect}")
-    main_counts = runs[("bfloat16", "cuda")][2]
-    log(f"olmoe prefill: launches per prefill through the kernels "
-        f"{main_counts}; through the plain versions "
-        f"{runs[('bfloat16', 'torch')][2]}")
+    _check_launches("olmoe", runs, cfg.n_layers)
     first = runs[("bfloat16", "cuda")][0]
     # the check holds the kernels' numerics with the MoE routing pinned
     # (see _routing_pinned); the unpinned distances are printed beside it
-    free = {dt: within(runs[(dt, "cuda")][0][..., :cfg.vocab],
-                       runs[(dt, "torch")][0][..., :cfg.vocab], 0.0)[0]
+    free = {dt: within(runs[(dt, "cuda")][0], runs[(dt, "torch")][0], 0.0)[0]
             for dt in ("float32", "bfloat16")}
     pinned, flips = _routing_pinned(cfg, params, toks[:, :seq])
     log(f"olmoe routing: recorded in the plain f32 prefill ({cfg.n_layers} "
@@ -1759,11 +1920,12 @@ def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
         + ", ".join(f"{d} {i} {f[0]}, {f[1]}" for (d, i), f in flips.items())
         + f"; unpinned kernels vs plain max |diff| f32 "
         f"{free['float32']:.4e}, bf16 {free['bfloat16']:.4e}")
-    for key, lg in pinned.items():
-        runs[key] = (lg,) + runs[key][1:]
+    for key, run in pinned.items():
+        runs[key] = (run[0],) + runs[key][1:]
     _check_prefill(cfg.name + " (routing pinned)", runs, 1e-3)
     step = make_prefill_step(cfg)
-    again = [step(params, toks[:, :seq])[0].float() for _ in range(2)]
+    again = [step(params, toks[:, :seq])[0].float()[..., :cfg.vocab]
+             for _ in range(2)]
     same = all(torch.equal(first, a) for a in again)
     log(f"olmoe determinism: three bf16 prefills through the kernels give "
         f"bit-identical last-position logits: {same}")
@@ -1781,40 +1943,14 @@ def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
     m = cfg.moe
     dropless = cfg.scaled(moe=dataclasses.replace(
         m, capacity_factor=m.n_experts / m.top_k))
-    fwd = {}
+    caches = {}
     for dtype in ("float32", "bfloat16"):
-        full, _, _ = apply_model(params, toks, cfg=dropless.scaled(
-            dtype=dtype), mode="train")
-        fwd[dtype] = full[:, seq:, :cfg.vocab].float()
-        del full
-        free_cuda()
-    own = within(fwd["bfloat16"], fwd["float32"], 0.0)[0]
-    step_ms = {}
-    for dtype, tol in (("float32", 1e-3), ("bfloat16", max(0.25, 2 * own))):
-        c = dropless.scaled(dtype=dtype)
-        _, pcache = make_prefill_step(c)(params, toks[:, :seq])
-        cache = _graft(c, pcache, batch, seq + steps)
-        del pcache
-        rows, times = [], []
-        for t in range(seq, seq + steps):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            lg, cache, _ = apply_model(params, toks[:, t:t + 1], cfg=c,
-                                       mode="decode", cache=cache)
-            torch.cuda.synchronize()
-            times.append(time.monotonic() - t0)
-            rows.append(lg[:, 0, :cfg.vocab].float())
-        step_ms[dtype] = 1e3 * float(np.median(times[1:]))
-        err, ok = within(torch.stack(rows, 1), fwd[dtype], tol)
-        log(f"olmoe decode after prefill {dtype}: {steps} steps vs the "
-            f"train-mode forward (experts dropless), max |diff| {err:.4e} "
-            f"(tol {tol:.4g} abs + rel): {ok}; logits finite: "
-            f"{bool(torch.isfinite(torch.stack(rows)).all())}")
-        if not ok:
-            raise AssertionError(f"olmoe decode after prefill {dtype}: {err}")
-        del cache
-        free_cuda()
-    del fwd
+        caches[(dtype, "cuda")] = (None, make_prefill_step(
+            dropless.scaled(dtype=dtype))(params, toks[:, :seq])[1])
+    step_ms = _decode_vs_forward("olmoe (experts dropless): ", dropless,
+                                 params, toks, seq, steps, caches)
+    del caches
+    free_cuda()
 
     # one MoE layer at the prefill's shape, and the prefill's MoE share
     lp = layer_params(params["groups"]["g0"]["p0"], 0)["moe"]
@@ -1860,16 +1996,250 @@ def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
     free_cuda()
 
     phase_dense_serve(cfg, params, card)
+    _paged_refused("olmoe", cfg, params)
+    del params
+    free_cuda()
+
+
+def _paged_refused(label: str, cfg, params) -> None:
+    """The paged path refuses ``cfg`` with check_paged_support's
+    ValueError (the reference's text)."""
     try:
         ServeEngine(cfg, params, kv_store="paged", kv_storage="device",
                     device=DEV, page_size=PAGE, num_pages=64, max_batch=4)
     except ValueError as e:
-        log(f"olmoe paged serving refused: ValueError: {e}")
+        log(f"{label} paged serving refused: ValueError: {e}")
     else:
-        raise AssertionError("the paged path took an MoE config")
+        raise AssertionError(f"the paged path took {cfg.name}")
+
+
+def _check_launches(label: str, runs, n_flash: int) -> None:
+    """Each prefill through the kernels launched flash ``n_flash`` times
+    and the scan never; through the plain versions, no kernel."""
+    want = {"flash_attention": n_flash, "linear_scan": 0}
+    for (dtype, impl), run in runs.items():
+        got = {k: run[2][k] for k in want}
+        expect = want if impl == "cuda" else {k: 0 for k in want}
+        if got != expect:
+            raise AssertionError(f"{label} {dtype} {impl} prefill launches "
+                                 f"{got}, want {expect}")
+    log(f"{label} prefill: launches per prefill through the kernels "
+        f"{runs[('bfloat16', 'cuda')][2]}; through the plain versions "
+        f"{runs[('bfloat16', 'torch')][2]}")
+
+
+def _flash_line(label: str, name: str, times, card: str) -> None:
+    """The kernels phase's bf16 timing of flash at this model's call shape
+    ``name`` (same shapes, random inputs)."""
+    ms, _, bound, by, lib = times[name]
+    _, flops = flash_work(FLASH_SHAPES[name])
+    sdpa = ("n/a" if lib is None else
+            f"{lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s), kernel / SDPA "
+            f"{ms / lib:.2f}x")
+    log(f"{label} flash bf16 at {name} {FLASH_SHAPES[name]}: kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA {sdpa}, bound "
+        f"{bound:.6f} ms ({by}; {flops:.4g} FLOPs); from the kernels phase; "
+        f"{card}")
+
+
+def _prefill_profile(label: str, cfg, params, toks, frontend=None,
+                     top: int = 6):
+    """One bf16 prefill through the kernels under torch.profiler, after a
+    warm call: returns (device busy s, window s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_prefill_step(cfg)
+    step(params, toks, frontend)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, toks, frontend)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    log(f"{label} profile: {cfg.name} prefill of {toks.shape[0]} x "
+        f"{toks.shape[1]} tokens")
+    busy = report_profile(prof, wall, 1, cfg.n_layers, top)
+    free_cuda()
+    return busy, wall
+
+
+# ----------------------------------------------------------------------------
+# 9. deepseek-v3: MLA and the MTP head's parameters
+# ----------------------------------------------------------------------------
+
+
+def phase_deepseek(card: str, flash_times, batch: int = 2, seq: int = 2048,
+                   steps: int = 8) -> int:
+    """deepseek-v3-671b at full width, cut in depth to 3 dense + 1 MoE
+    layers (MTP parameters built): f32 and bf16 prefill through the kernels
+    vs the plain versions, and the absorbed decode against the train-mode
+    forward, on the dense group alone (3 MLA layers) and on the 3 + 1 cut
+    (the expert weights held in each run's dtype; the plain f32 prefill's
+    MoE routing replayed in the other prefills, the f32 forward's in the
+    bf16 forward and the decode steps); on the cut in bf16, the launches
+    (flash at MLA's D=192 / Dv=128 shape once a layer), three prefills
+    bit-equal, and greedy make_serve_step; the prefill under the profiler;
+    dense serving; the paged path's refusal.  Returns the flash launches of
+    one prefill through the kernels."""
+    full = deepseek_v3_671b.CONFIG
+    dense_g, moe_g = full.groups
+    cfg = full.scaled(groups=(dense_g, dataclasses.replace(moe_g, repeats=1)))
+    dense = full.scaled(groups=(dense_g,))
+    m, e = cfg.mla, cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    params = _model(cfg, f"cut: groups {dense_g.repeats} dense + "
+                         f"{moe_g.repeats} MoE -> {dense_g.repeats} dense + 1 "
+                         f"MoE; full width: MLA ranks {m.q_lora_rank}/"
+                         f"{m.kv_lora_rank}, {e.n_experts} experts top-"
+                         f"{e.top_k} + {e.n_shared} shared, MTP parameters")
+    dparams = dict(params, groups={"g0": params["groups"]["g0"]})
+    rng = np.random.default_rng(SEED + 8)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq + steps))
+                            ).to(DEV)
+
+    # f32 and bf16 on the dense group
+    label = f"deepseek dense group ({dense.n_layers} MLA layers)"
+    runs = _prefill_runs(dense, dparams, toks[:, :seq])
+    _check_launches(label, runs, dense.n_layers)
+    _check_prefill(f"{cfg.name} {label}", runs, 1e-3)
+    _decode_vs_forward(f"{label}: absorbed ", dense, dparams, toks, seq,
+                       steps, runs)
+    del runs
+    free_cuda()
+
+    # bf16 on the 3 + 1 cut
+    step = make_prefill_step(cfg)
+    build.reset_launch_counts()
+    first = step(params, toks[:, :seq])
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    if (counts["flash_attention"], counts["linear_scan"]) != (cfg.n_layers,
+                                                              0):
+        raise AssertionError(f"deepseek prefill launches {counts}")
+    log(f"deepseek prefill: launches per prefill through the kernels "
+        f"{counts} ({cfg.n_layers} MLA layers)")
+    again, times = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        again.append(step(params, toks[:, :seq])[0])
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    same = all(torch.equal(first[0], a) for a in again)
+    log(f"deepseek determinism: three bf16 prefills through the kernels give "
+        f"bit-identical last-position logits: {same}")
+    if not same:
+        raise AssertionError("deepseek bf16 prefills differ from run to run")
+    del again
+    plain = make_prefill_step(cfg, impl="torch")
+    unpinned = plain(params, toks[:, :seq])[0].float()[..., :cfg.vocab]
+    free_d = within(first[0].float()[..., :cfg.vocab], unpinned, 0.0)[0]
+    del plain, unpinned
+    free_cuda()
+
+    # f32 and bf16 on the 3 + 1 cut, the expert weights held in each run's
+    # dtype (_experts_in), the plain f32 prefill's routing replayed
+    runs, flips = _routing_pinned(cfg, params, toks[:, :seq], hold=True)
+    log(f"deepseek routing: recorded in the plain f32 prefill (1 MoE layer "
+        f"x {batch * seq} tokens, {e.n_experts} experts top-{e.top_k}, C="
+        f"{capacity(cfg, batch * seq)}) and replayed; the replayed runs' "
+        f"own choices differing (token expert sets, kept pairs): "
+        + ", ".join(f"{d} {i} {f[0]}, {f[1]}" for (d, i), f in flips.items()
+                    if (d, i) != PIN_RUNS[0])
+        + f"; unpinned bf16 kernels vs plain max |diff| {free_d:.4e}")
+    _check_prefill(f"{cfg.name} 3 dense + 1 MoE (routing pinned)", runs, 1e-3)
+    _decode_vs_forward("deepseek 3 dense + 1 MoE: absorbed ", cfg, params,
+                       toks, seq, steps, runs, pin=_Pin())
+    del runs
+    free_cuda()
+
+    step_ms = _greedy_steps("deepseek: ", cfg, params,
+                            (first[0].float(), first[1]), seq, steps)
+    del first
+    free_cuda()
+    _flash_line("deepseek", "deepseek MLA", flash_times, card)
+    busy, wall = _prefill_profile("deepseek", cfg, params, toks[:, :seq])
+    read = sum(t.numel() * t.element_size() for t in _leaves(
+        {k: params[k] for k in ("groups", "lm_head", "final_norm")}))
+    log(f"deepseek times: prefill {batch} x {seq} bf16 through the kernels "
+        f"{1e3 * float(np.median(times)):.1f} ms host time, device busy "
+        f"{1e3 * busy:.1f} ms of a {1e3 * wall:.1f} ms profiled window; "
+        f"decode step (batch {batch}, every expert read: C = T) bf16 "
+        f"{step_ms:.2f} ms host time, bound "
+        f"{read / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: {read / 1e9:.2f} GB "
+        f"of weights a step); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    phase_dense_serve(cfg, params, card, shared_len=16, tails=(4, 32),
+                      alone=(16, 40))
+    _paged_refused("deepseek", cfg, params)
+    del params, dparams
+    free_cuda()
+    return counts["flash_attention"]
+
+
+# ----------------------------------------------------------------------------
+# 10. cross attention and the encoder: llama-3.2-vision, whisper-small
+# ----------------------------------------------------------------------------
+
+
+def _frontend_model(label: str, cfg, params, card: str, flash_times, shapes,
+                    batch: int, seq: int, steps: int, seed: int) -> int:
+    """Prefill with a frontend (0.02 N(0, 1) embeddings, the reference
+    trainer's stub) through the kernels vs the plain versions in bf16 and
+    f32, then decode steps against the train-mode forward; flash at each
+    of ``shapes``; the paged path's refusal.  Returns the flash launches
+    of one prefill through the kernels."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + seed)
+    frontend = 0.02 * torch.randn((batch, cfg.n_frontend_tokens,
+                                   cfg.d_model), generator=gen, device=DEV)
+    rng = np.random.default_rng(SEED + seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, seq + steps))
+                            ).to(DEV)
+    runs = _prefill_runs(cfg, params, toks[:, :seq], frontend)
+    n_flash = sum(g.repeats * sum(ls.mixer == "attn" for ls in g.pattern)
+                  for g in cfg.groups + cfg.encoder_groups)
+    _check_launches(label, runs, n_flash)
+    launched = runs[("bfloat16", "cuda")][2]["flash_attention"]
+    _check_prefill(cfg.name, runs, 1e-3)
+    _decode_vs_forward(f"{label}: ", cfg, params, toks, seq, steps, runs,
+                       frontend)
+    del runs
+    free_cuda()
+    for name in shapes:
+        _flash_line(label, name, flash_times, card)
+    _paged_refused(label, cfg, params)
+    return launched
+
+
+def phase_cross(card: str, flash_times) -> int:
+    """llama-3.2-vision-90b at full width cut to 2 pattern repeats (8 self
+    + 2 cross layers; 2 x 2048 text tokens over 1601 image tokens) and
+    whisper-small whole (12 encoder + 12 decoder patterns; 4 x 448 text
+    tokens over 1500 frames).  Returns the flash launches of one prefill
+    of each, summed."""
+    full = llama32_vision_90b.CONFIG
+    (g,) = full.groups
+    cfg = full.scaled(groups=(dataclasses.replace(g, repeats=2),))
+    params = _model(cfg, f"cut: {g.repeats} pattern repeats -> 2 (8 self + "
+                         f"2 cross layers); full width, "
+                         f"{cfg.n_frontend_tokens} image tokens")
+    n = _frontend_model("llama-vision", cfg, params, card, flash_times,
+                        ("llama-vision self", "llama-vision cross"),
+                        batch=2, seq=2048, steps=8, seed=9)
     del params
     free_cuda()
-    return main_counts["flash_attention"]
+    cfg = whisper_small.CONFIG
+    params = _model(cfg, f"no cut: {cfg.encoder_groups[0].repeats} encoder "
+                         f"+ {cfg.groups[0].repeats} decoder patterns, "
+                         f"{cfg.n_frontend_tokens} frames")
+    n += _frontend_model("whisper", cfg, params, card, flash_times,
+                         ("whisper encoder", "whisper self",
+                          "whisper cross"),
+                         batch=4, seq=448, steps=8, seed=10)
+    del params
+    free_cuda()
+    return n
 
 
 # ----------------------------------------------------------------------------
@@ -1898,6 +2268,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--structures"]:
         phase_structures()      # the process start_structures starts
         return 0
+    t0 = time.monotonic()
+
+    def done(phases: str) -> None:
+        log(f"time: {phases} done at {time.monotonic() - t0:.1f} s")
+
     card = phase_card()
     structures = start_structures()      # host work, beside the card's
     try:
@@ -1908,13 +2283,16 @@ def main() -> int:
         structures[0].wait()
         raise
     finish_structures(structures)
+    done("card, build, kernels, structures")
 
     cfg = starcoder2_7b.CONFIG
     params = _model(cfg, "no depth cut")
     launches = phase_serve(cfg, params, card)
     del params                 # the smr serve processes make their own
     free_cuda()
+    done("serve")
     phase_smr_serve()
+    done("smr serve")
     params = _model(cfg, "no depth cut, the same seed")
     phase_fleet_replay(cfg, params, card)
     phase_profile(cfg, params)
@@ -1922,6 +2300,7 @@ def main() -> int:
     phase_prefill_kv(cfg, params)
     del params
     free_cuda()
+    done("fleet replay, profile, slice, prefill_kv")
 
     cfg = zamba2_2p7b.CONFIG
     params = _model(cfg, "no depth cut")
@@ -1938,9 +2317,18 @@ def main() -> int:
     phase_rwkv_prefill(cfg, params)
     del params
     free_cuda()
+    done("dense (zamba2, rwkv6)")
 
-    # this slice's path runs flash at olmoe's shape: its line reads there
-    launches["flash_attention"] = phase_olmoe(card)
+    phase_olmoe(card)
+    done("olmoe")
+    # this slice's path runs flash at the MLA, encoder and cross attention
+    # shapes: its line reads at MLA's, with the launches of the three
+    # models' prefills
+    flash_times = kres[("flash_attention", torch.bfloat16)][1]
+    launches["flash_attention"] = phase_deepseek(card, flash_times)
+    done("mla (deepseek)")
+    launches["flash_attention"] += phase_cross(card, flash_times)
+    done("cross (llama-vision, whisper)")
 
     kernels = []
     for name in REPLACES:
@@ -1953,7 +2341,7 @@ def main() -> int:
             ms, plain, bound, lib = t_bf16
             by = "bytes"
         elif name == "flash_attention":
-            ms, plain, bound, by, lib = t_bf16["olmoe prefill"]
+            ms, plain, bound, by, lib = t_bf16["deepseek MLA"]
         else:
             ms, plain, bound, by, lib, _ = t_bf16["mamba2"]
         kernels.append({

@@ -3,8 +3,12 @@
 Replaces the reference's Pallas TPU kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention.py:94``): full-sequence attention,
 causal or bidirectional, with an optional sliding window and logit
-softcap, GQA.  On the card it is bound by its operations, not its bytes,
-at prefill lengths.  In bf16 the kernel runs both products on the tensor
+softcap, GQA, Sq != Sk and Dv != D.  Its callers are every full-sequence
+attention of ``models/attention.py``: causal self attention (GQA, local
+windows, softcaps), MLA's explicit form at D = 192 over Dv = 128, cross
+attention (bidirectional, queries over a frontend's T tokens), and an
+encoder's bidirectional self attention.  On the card it is bound by its
+operations, not its bytes, at prefill lengths.  In bf16 the kernel runs both products on the tensor
 cores (``mma.sync``), keeps Q and the online-softmax state in registers,
 and double-buffers 64-key K/V tiles in shared memory with ``cp.async``;
 in float32 it runs on the CUDA cores, since the reference's f32 products

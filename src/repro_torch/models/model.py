@@ -1,11 +1,16 @@
 """Model assembly: embeddings -> layer groups -> norm -> logits.
 
-The reference's one forward, :func:`apply_model`, for the architectures
-whose layers this package has: GQA attention (full and sliding window),
-Mamba2, RWKV-6, zamba2's weight-tied shared attention block, the dense
-MLP and the MoE FFN (dense dispatch, ``models/moe.py``).  MLA, cross
-attention, the encoder and the MTP head come with their own slices of the
-port and raise :class:`NotImplementedError` naming them.
+The reference's one forward, :func:`apply_model`, for every architecture
+of the registry: GQA attention (full and sliding window), MLA with its
+absorbed decode, cross attention over a frontend's tokens, Mamba2,
+RWKV-6, zamba2's weight-tied shared attention block, the dense MLP and
+the MoE FFN (dense dispatch, ``models/moe.py``).  Enc-dec configs
+(whisper) run their encoder groups on the frontend's embeddings in
+train/prefill; a VLM (llama-3.2-vision) attends to the frontend's tokens
+as they are.  DeepSeek-V3's multi-token-prediction head has its
+parameters here (``mtp``), and train mode hands its input out as
+``aux["mtp_hidden"]``; its loss comes with the training slice of the
+port.
 
 Modes:
   train:   full-seq forward (a forward only here); returns (logits, None, aux)
@@ -13,6 +18,8 @@ Modes:
            every MoE layer, zeros without one; every mode returns them)
   prefill: full-seq forward, returns (last-position logits, cache)
   decode:  one token per sequence against the cache, returns (logits, cache)
+           (never runs the encoder: cross layers read the K/V cached at
+           prefill, zeros in a cache no prefill wrote)
 
 The layer groups run as a Python loop over the pattern repeats (the
 reference's ``scan``/``fori_loop``), weights stacked on a leading
@@ -23,9 +30,10 @@ clone it first.
 
 The parameter tree keeps the reference's key layout (``embed``,
 ``final_norm``, ``lm_head``, ``groups/g{gi}/p{pi}/...`` stacked over
-repeats, ``shared_attn/{norm, attn}``) so weights bridge 1:1.
-:func:`check_paged_support` says which configs the paged serving path
-(``serve/paged_model.py``) takes.
+repeats, ``shared_attn/{norm, attn}``, ``encoder/{groups, final_norm,
+pos_embed}``, ``mtp/{norm_h, norm_e, proj, layer}``) so weights bridge
+1:1.  :func:`check_paged_support` says which configs the paged serving
+path (``serve/paged_model.py``) takes.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import layers as L
-from repro_torch.models.attention import _CROSS, _MLA, apply_attn, attn_specs
+from repro_torch.models.attention import apply_attn, attn_specs
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.ssm import (_st_write, apply_mamba2, apply_rwkv6,
                                     mamba2_dims, mamba2_specs, rwkv6_dims,
@@ -45,12 +53,7 @@ from repro_torch.models.ssm import (_st_write, apply_mamba2, apply_rwkv6,
 Spec = L.Spec
 
 __all__ = ["apply_model", "build_specs", "cache_shapes", "check_paged_support",
-           "init_cache", "init_params"]
-
-_ENCODER = ("encoder groups (enc-dec, whisper) are not ported yet: they come "
-            "with the cross-attention/encoder slice of the port")
-_MTP = ("the multi-token-prediction head is not ported yet: it comes with the "
-        "training slice of the port")
+           "encode", "init_cache", "init_params"]
 
 
 def check_paged_support(cfg: ArchConfig) -> None:
@@ -89,8 +92,6 @@ def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
     D = cfg.d_model
     s: Dict[str, Any] = {}
     if spec.mixer == "attn":
-        if spec.attn_kind == "cross":
-            raise NotImplementedError(_CROSS)
         s["norm1"] = Spec((D,), ("embed",), "zeros")
         s["attn"] = attn_specs(cfg, spec.attn_kind)
         if cfg.post_norms:
@@ -113,9 +114,14 @@ def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
     return s
 
 
+def _groups_specs(cfg: ArchConfig, groups) -> Dict[str, Any]:
+    return {f"g{gi}": {f"p{pi}": L.stack_specs(_layer_specs(cfg, ls),
+                                               g.repeats)
+                       for pi, ls in enumerate(g.pattern)}
+            for gi, g in enumerate(groups)}
+
+
 def build_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    if cfg.encoder_groups:
-        raise NotImplementedError(_ENCODER)
     D, V = cfg.d_model, cfg.vocab_padded
     specs: Dict[str, Any] = {
         "embed": Spec((V, D), ("vocab", "embed"), "normal", 1.0),
@@ -123,16 +129,26 @@ def build_specs(cfg: ArchConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = Spec((D, V), ("embed", "vocab"))
-    specs["groups"] = {
-        f"g{gi}": {f"p{pi}": L.stack_specs(_layer_specs(cfg, ls), g.repeats)
-                   for pi, ls in enumerate(g.pattern)}
-        for gi, g in enumerate(cfg.groups)}
-    if cfg.mtp:
-        raise NotImplementedError(_MTP)
+    specs["groups"] = _groups_specs(cfg, cfg.groups)
     if any(ls.shared_attn for g in cfg.groups for ls in g.pattern):
         specs["shared_attn"] = {
             "norm": Spec((D,), ("embed",), "zeros"),
             "attn": attn_specs(cfg, "full"),
+        }
+    if cfg.encoder_groups:
+        specs["encoder"] = {
+            "groups": _groups_specs(cfg, cfg.encoder_groups),
+            "final_norm": Spec((D,), ("embed",), "zeros"),
+            "pos_embed": Spec((cfg.n_frontend_tokens, D), ("seq", "embed"),
+                              "normal", 1.0)}
+    if cfg.mtp:
+        specs["mtp"] = {
+            "norm_h": Spec((D,), ("embed",), "zeros"),
+            "norm_e": Spec((D,), ("embed",), "zeros"),
+            "proj": Spec((2 * D, D), ("embed2", "embed")),
+            "layer": _layer_specs(cfg, LayerSpec(mixer="attn",
+                                                 attn_kind="full",
+                                                 mlp="dense")),
         }
     return specs
 
@@ -161,11 +177,14 @@ def _layer_cache_spec(cfg: ArchConfig, spec: LayerSpec, batch: int,
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     out: Dict[str, Tuple[int, ...]] = {}
     if spec.mixer == "attn":
-        if spec.attn_kind in ("mla", "cross"):
-            raise NotImplementedError(_MLA if spec.attn_kind == "mla"
-                                      else _CROSS)
-        out["k"] = (batch, seq, Hkv, hd)
-        out["v"] = (batch, seq, Hkv, hd)
+        if spec.attn_kind == "mla":
+            out["ckv"] = (batch, seq, cfg.mla.kv_lora_rank)
+            out["k_rope"] = (batch, seq, cfg.mla.qk_rope_head_dim)
+        else:
+            # cross: the K/V of the frontend's T tokens, not of the sequence
+            t = cfg.n_frontend_tokens if spec.attn_kind == "cross" else seq
+            out["k"] = (batch, t, Hkv, hd)
+            out["v"] = (batch, t, Hkv, hd)
     elif spec.mixer == "mamba2":
         d_inner, nh, ds, dc = mamba2_dims(cfg)
         out["conv"] = (batch, dc - 1, d_inner + 2 * ds)
@@ -232,7 +251,7 @@ def layer_params(gp, rep: int):
 
 
 def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
-                 shared_params, layer_idx=None, impl=None):
+                 kv_source, shared_params, layer_idx=None, impl=None):
     """One pattern-position layer.  Returns (x, new_lcache, aux), the MoE
     losses added to ``aux``."""
     new_cache: Dict[str, Any] = {}
@@ -241,8 +260,8 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
         o, c = apply_attn(lp["attn"], h, cfg=cfg, kind=spec.attn_kind,
                           mode=mode, cache=lcache if lcache else None,
-                          pos=pos, causal=spec.causal, layer_idx=layer_idx,
-                          impl=impl)
+                          pos=pos, kv_source=kv_source, causal=spec.causal,
+                          layer_idx=layer_idx, impl=impl)
         if cfg.post_norms:
             o = L.rms_norm(o, lp["post_norm1"], cfg.norm_eps)
         x = x + o
@@ -302,7 +321,7 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
 
 
 def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
-                shared_params, impl=None):
+                kv_source, shared_params, impl=None):
     aux = _zero_aux(x.device)
     new_cache: Dict[str, Any] = {}
     for gi, g in enumerate(groups_def):
@@ -318,13 +337,13 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
                     # the STACKED cache is written at [layer, ...] in place
                     x, _, aux = _apply_layer(
                         lp[key], ls, x, aux, cfg=cfg, mode=mode,
-                        lcache=gc.get(key),
-                        pos=pos, shared_params=shared_params, layer_idx=rep,
+                        lcache=gc.get(key), pos=pos, kv_source=kv_source,
+                        shared_params=shared_params, layer_idx=rep,
                         impl=impl)
                     continue
                 x, nc, aux = _apply_layer(
                     lp[key], ls, x, aux, cfg=cfg, mode=mode, lcache=None,
-                    pos=pos,
+                    pos=pos, kv_source=kv_source,
                     shared_params=shared_params, impl=impl)
                 if mode == "prefill" and nc:
                     per = produced.setdefault(key, {})
@@ -339,6 +358,21 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
     return x, new_cache, aux
 
 
+def encode(params: Dict[str, Any], frontend: torch.Tensor, *,
+           cfg: ArchConfig, impl: Optional[str] = None) -> torch.Tensor:
+    """Enc-dec (whisper): the encoder groups in train mode over the stub
+    frontend embeddings (B, n_frontend_tokens, D) plus ``pos_embed``, then
+    ``encoder/final_norm``: the cross layers' ``kv_source``."""
+    dt = L.torch_dtype(cfg.dtype)
+    enc = params["encoder"]
+    pe = enc["pos_embed"]
+    h = frontend.to(pe.device, dt) + pe[None].to(dt)
+    h, _, _ = _run_groups(enc["groups"], cfg.encoder_groups, h, cfg=cfg,
+                          mode="train", cache=None, pos=None, kv_source=None,
+                          shared_params=None, impl=impl)
+    return L.rms_norm(h, enc["final_norm"], cfg.norm_eps)
+
+
 def apply_model(
     params: Dict[str, Any],
     tokens: torch.Tensor,                   # (B, S) integer
@@ -346,13 +380,14 @@ def apply_model(
     cfg: ArchConfig,
     mode: str = "train",
     cache: Optional[Dict[str, Any]] = None,
+    frontend: Optional[torch.Tensor] = None,   # (B, T, D) stub embeddings
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Dict[str, torch.Tensor]]:
-    """``impl`` picks the kernels' implementation (``kernels/ops.py``): the
-    CUDA kernels for CUDA tensors and the plain versions on the CPU unless
-    given."""
-    if cfg.encoder_groups:
-        raise NotImplementedError(_ENCODER)
+    """``frontend``: the frontend's token embeddings for train/prefill (the
+    encoder's input for enc-dec, the cross layers' keys as they are for a
+    VLM); decode ignores it.  ``impl`` picks the kernels' implementation
+    (``kernels/ops.py``): the CUDA kernels for CUDA tensors and the plain
+    versions on the CPU unless given."""
     dt = L.torch_dtype(cfg.dtype)
     dev = params["embed"].device
     tokens = tokens.to(dev)
@@ -361,13 +396,22 @@ def apply_model(
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
     pos = cache["pos"] if (cache is not None and mode == "decode") else None
+
+    kv_source = None
+    if cfg.encoder_groups and mode != "decode":
+        kv_source = encode(params, frontend, cfg=cfg, impl=impl)
+    elif frontend is not None and mode != "decode":
+        kv_source = frontend.to(dev, dt)     # vlm: pre-projected image tokens
+
     x, new_cache, aux = _run_groups(params["groups"], cfg.groups, x, cfg=cfg,
                                mode=mode, cache=cache if mode == "decode"
-                               else None, pos=pos,
+                               else None, pos=pos, kv_source=kv_source,
                                shared_params=params.get("shared_attn"),
                                impl=impl)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.mtp and mode == "train":
+        aux["mtp_hidden"] = x     # the MTP head's input, for the loss
     if mode == "prefill":
         # only the last position's logits are needed: slice BEFORE the head
         # product, so no (B, S, V) tensor materialises

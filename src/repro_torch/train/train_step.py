@@ -1,7 +1,8 @@
 """The cross-entropy loss and the prefill / serve step functions the
 reference's dry-run lowers, over :func:`~repro_torch.models.model.
-apply_model`.  ``loss_fn`` and ``make_train_step`` come with the training
-slice of the port."""
+apply_model`.  ``loss_fn``, ``make_train_step`` and the MTP head's loss
+(``_mtp_loss``, over ``aux["mtp_hidden"]`` and the ``mtp`` parameters)
+come with the training slice of the port."""
 
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def make_prefill_step(cfg: ArchConfig, impl: Optional[str] = None):
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, frontend=None):
         logits, cache, _ = apply_model(params, tokens, cfg=cfg,
-                                       mode="prefill", impl=impl)
+                                       mode="prefill", frontend=frontend,
+                                       impl=impl)
         return logits[:, -1], cache
 
     return prefill_step

@@ -3,7 +3,8 @@
 ``ServeEngine(kv_store="dense")`` -- one private decode cache per request,
 prefilled token by token and decoded through ``apply_model`` -- decodes
 the same greedy tokens as the reference's dense engine on the zamba2,
-rwkv6, gemma2 and olmoe (MoE) smoke configs, with the same bridged
+rwkv6, gemma2, olmoe (MoE) and deepseek-v3 (MLA with its absorbed decode,
+MoE with a shared expert) smoke configs, with the same bridged
 weights, two decode engines and the prefix cache on, and leaks no block.  The configs run in
 f32 compute, where the two packages' logits agree to ~1e-5, so a greedy
 token can only differ through a real fault (bf16 rounds differently in
@@ -65,7 +66,7 @@ def _serve(eng, waves, max_new=5):
 
 
 @pytest.mark.parametrize("arch", ["zamba2_2p7b", "rwkv6_1p6b", "gemma2_27b",
-                                  "olmoe_1b_7b"])
+                                  "olmoe_1b_7b", "deepseek_v3_671b"])
 def test_dense_engine_tokens_match_reference(arch):
     jcfg = j_smoke(arch).scaled(dtype="float32")
     tcfg = get_smoke_config(arch).scaled(dtype="float32")

@@ -180,24 +180,24 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         ServeEngine(CFG, params, **ENGINE_KW)
 
 
-def test_unported_paths_raise_and_name_their_slice():
-    for arch, slice_ in (("deepseek_v3_671b", "MLA slice"),
-                         ("whisper_small", "encoder slice")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            init_params(get_smoke_config(arch),
-                        torch.Generator().manual_seed(0), device="cpu")
-    # MoE builds now, and the paged path refuses it as the reference's does
-    moe_cfg = get_smoke_config("olmoe_1b_7b")
-    moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
-    with pytest.raises(ValueError) as got:
-        ServeEngine(moe_cfg, moe_params, device="cpu", **ENGINE_KW)
+def test_paged_path_refuses_what_the_reference_refuses():
+    """MoE, MLA, cross attention and enc-dec configs build and run densely;
+    the paged path refuses each with the reference's exact ValueError."""
     from repro.configs.registry import get_smoke_config as j_smoke
     from repro.serve.paged_model import check_paged_support as j_check
-    with pytest.raises(ValueError) as want:
-        j_check(j_smoke("olmoe_1b_7b"))
-    assert str(got.value) == str(want.value)
-    assert "mlp=moe" in str(got.value)
+    for arch, what in (("olmoe_1b_7b", "mlp=moe"),
+                       ("deepseek_v3_671b", "attn_kind=mla"),
+                       ("llama32_vision_90b", "attn_kind=cross"),
+                       ("whisper_small", "encoder_groups (enc-dec)")):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        with pytest.raises(ValueError) as got:
+            ServeEngine(cfg, params, device="cpu", **ENGINE_KW)
+        with pytest.raises(ValueError) as want:
+            j_check(j_smoke(arch))
+        assert str(got.value) == str(want.value)
+        assert what in str(got.value)
     params = init_params(CFG, torch.Generator().manual_seed(0), device="cpu")
     # every safe registry scheme resolves now; the unsafe demo scheme and
     # unknown names are refused as the reference's make_policy refuses them
