@@ -8,8 +8,9 @@ kernels, serve zamba2-2.7b densely, run olmoe-1b-7b's MoE model,
 deepseek-v3's MLA (cut in depth), llama-3.2-vision's cross attention (cut
 in depth) and whisper-small's encoder and decoder end to end, and compare
 every path's logits through the kernels with the same through the plain
-versions; beside them, on the host, the paper's data-structure grid and
-robustness gauntlet.
+versions; train zamba2-2.7b, rwkv6-1.6b, deepseek-v3 (cut in depth) and
+whisper-small through the kernels' gradients; beside them, on the host,
+the paper's data-structure grid and robustness gauntlet.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -36,7 +37,8 @@ Phases (any failure raises and exits non-zero; none is caught):
               attention S=448, causal, and cross attention Sq=448,
               Sk=1500; llama-vision's self attention B=2, S=2048, H=64,
               Hkv=8, D=128, causal, and cross attention Sq=2048, Sk=1601;
-              and the small edge cases of ``FLASH_EDGE_CASES``) within
+              phase 11's deepseek MLA at B=2, S=1024 and its MTP block's
+              attention, H=Hkv=128, D=Dv=56; and the small edge cases of ``FLASH_EDGE_CASES``) within
               2e-5 (f32) / 2e-2 (bf16); the
               scatter bit-exact through numpy indices and through a
               prepared index, and timed both ways beside two index_put_
@@ -145,6 +147,30 @@ Phases (any failure raises and exits non-zero; none is caught):
               the prefill vs the train-mode forward, flash at each of its
               call shapes beside SDPA and its bound, and the paged path's
               ValueError.
+11. train  -- training through the kernels' autograd.Functions (kernel
+              forward, plain VJP backward), each model in its own scope:
+              zamba2-2.7b whole (remat "full", 4 x 2048 from the
+              pipeline), rwkv6-1.6b whole, deepseek-v3 at full width cut
+              to its first dense MLA layer with the MTP head (2 x 1024),
+              whisper-small whole (4 x 448 over 1500 stub frames).  Each:
+              loss_fn and its grads in f32 (leaves cast to f32) through
+              the kernels vs the plain versions, every leaf the forward
+              reads finite, nonzero and within 1e-3 relative (rwkv6
+              whole: its first layer so; the whole model's grads no
+              further than 2x the plain path's from the grads at the
+              scan's f64 forward, and every scan call's forward no
+              further than 1.1x the plain version's from f64); bf16
+              Trainer steps with loss, step time, tokens/s, model TFLOP/s,
+              launches a step and peak memory.  zamba2 also: launches a
+              step exactly 2 x 9 flash and 2 x 54 scan calls (forward and
+              remat recompute), one step under torch.profiler (forward,
+              backward, the plain VJPs' device time, AdamW), and one
+              step's parameter delta kernels vs plain.  deepseek: a
+              nonzero MTP loss and a nonzero grad on every ``mtp`` leaf.
+              whisper: an async checkpoint at step 2 restored by a fresh
+              Trainer, its final loss within 2e-2 of an uninterrupted run.
+              Then examples/train_tiny_lm_torch.py's 200 steps: the loss
+              drops.
 
 After each group of phases a ``time: ... done at N s`` line gives the
 time since the card phase began.  The last two lines of standard output
@@ -157,9 +183,12 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -185,7 +214,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.paged_attention import build_block_table  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import (apply_model, init_cache,  # noqa: E402
-                                      init_params, layer_params)
+                                      init_params, unstack)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import apply_moe, capacity  # noqa: E402
 from repro_torch.obs import SLOSpec, SLOTracker  # noqa: E402
@@ -196,8 +225,18 @@ from repro_torch.serve.loadgen import (TenantSpec, WorkloadSpec,  # noqa: E402
                                        generate, replay)
 from repro_torch.serve.paged_model import (paged_decode_step,  # noqa: E402
                                            prefill_kv, prefill_kv_chunked)
-from repro_torch.train.train_step import (make_prefill_step,  # noqa: E402
-                                          make_serve_step)
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.optim.adamw import (adamw_init, adamw_update,  # noqa: E402
+                                     cosine_schedule, tree_leaves, tree_map)
+from repro_torch.train.checkpoint import flatten_with_paths  # noqa: E402
+from repro_torch.train.train_step import (grad_tree, loss_fn,  # noqa: E402
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step, with_grad)
+from repro_torch.train.trainer import (Trainer, TrainerConfig,  # noqa: E402
+                                       stub_frontend)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+import train_tiny_lm_torch as tiny_lm  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -613,6 +652,10 @@ FLASH_SHAPES = {
     "whisper cross": (4, 448, 1500, 12, 12, 64, 64, False, 0, 0.0),
     "llama-vision self": (2, 2048, 2048, 64, 8, 128, 128, True, 0, 0.0),
     "llama-vision cross": (2, 2048, 1601, 64, 8, 128, 128, False, 0, 0.0),
+    # the train phase's own: deepseek's MLA at its train length, and the
+    # MTP block's standard attention (D = 56, the guarded instantiation)
+    "deepseek MLA train": (2, 1024, 1024, 128, 128, 192, 128, True, 0, 0.0),
+    "deepseek MTP": (2, 1024, 1024, 128, 128, 56, 56, True, 0, 0.0),
 }
 # (B, Sq, Sk, H, Hkv, D, Dv, causal, window, softcap): the flash kernel's
 # edges, the cases of tests/test_torch_dense_kernels.py's card test (this
@@ -1953,7 +1996,7 @@ def phase_olmoe(card: str, batch: int = 4, seq: int = 2048,
     free_cuda()
 
     # one MoE layer at the prefill's shape, and the prefill's MoE share
-    lp = layer_params(params["groups"]["g0"]["p0"], 0)["moe"]
+    lp = unstack(params["groups"]["g0"]["p0"])[0]["moe"]
     x = torch.randn((batch, seq, cfg.d_model), device=DEV,
                     generator=torch.Generator(device=DEV).manual_seed(SEED)
                     ).to(torch.bfloat16)
@@ -2160,7 +2203,7 @@ def phase_deepseek(card: str, flash_times, batch: int = 2, seq: int = 2048,
     free_cuda()
     _flash_line("deepseek", "deepseek MLA", flash_times, card)
     busy, wall = _prefill_profile("deepseek", cfg, params, toks[:, :seq])
-    read = sum(t.numel() * t.element_size() for t in _leaves(
+    read = sum(t.numel() * t.element_size() for t in tree_leaves(
         {k: params[k] for k in ("groups", "lm_head", "final_norm")}))
     log(f"deepseek times: prefill {batch} x {seq} bf16 through the kernels "
         f"{1e3 * float(np.median(times)):.1f} ms host time, device busy "
@@ -2243,6 +2286,563 @@ def phase_cross(card: str, flash_times) -> int:
 
 
 # ----------------------------------------------------------------------------
+# 11. training: loss (with the MTP head), autograd through the kernels,
+#     AdamW, remat, the trainer, its checkpoints and its launcher
+# ----------------------------------------------------------------------------
+
+
+TRAIN_GRAD_TOL = 1e-3   # f32 per-leaf ||g_kernels - g_plain|| / ||g_plain||
+RESTART_TOL = 2e-2      # the reference's tests/test_trainer.py bound
+# rwkv6-1.6b whole: its f32 gradient at random weights amplifies the
+# scan's f32 rounding so far that two f32 evaluations of the same scan
+# (the plain version and its chunked split) give grads ~1e-2 apart, so the
+# kernels are held against the gradient taken at the scan's f64 forward:
+# no further from it than F64_SCAN_RATIO x the plain path, and each
+# recorded call's forward no further from f64 than FWD_ERR_RATIO x the
+# plain version's (PERF.md, section 6)
+F64_SCAN_RATIO = 2.0
+FWD_ERR_RATIO = 1.1
+# (batch, sequence) of each model's train runs
+TRAIN_SHAPES = {"zamba2": (4, 2048), "rwkv6": (4, 2048),
+                "deepseek": (2, 1024), "whisper": (4, 448)}
+TINY_STEPS = 200
+
+
+def _pipeline_batch(cfg, batch: int, seq: int, seed: int, step: int = 0):
+    """The synthetic pipeline's batch on the card, with the trainer's stub
+    frontend where the config takes one."""
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=seed))
+    out = {k: torch.from_numpy(v).to(DEV)
+           for k, v in pipe.batch(step).items()}
+    if cfg.n_frontend_tokens:
+        out["frontend"] = stub_frontend(cfg, batch, seed, step, DEV)
+    return out
+
+
+def _train_launches(cfg):
+    """Kernel calls of one train step: each attention and scan call site
+    once in the forward, and once more in the backward's recompute under
+    remat."""
+    runs = 1 if cfg.remat == "none" else 2
+    count = lambda pred: runs * sum(g.repeats * sum(map(pred, g.pattern))
+                                    for g in cfg.groups)
+    return {"flash_attention": count(lambda ls: (ls.mixer == "attn")
+                                     + ls.shared_attn),
+            "linear_scan": count(lambda ls: ls.mixer in ("mamba2",
+                                                         "rwkv6"))}
+
+
+def _scan_f64(q, k, v, log_decay, *, state=None, bonus=None, chunk=128,
+              clamp=75.0):
+    """The scan's plain version evaluated in f64, its output rounded to
+    v's dtype: the scan's forward with f32's rounding taken out."""
+    out, st = ref.linear_scan_ref(q, k, v, log_decay, state=state,
+                                  bonus=bonus, chunk=chunk, clamp=clamp,
+                                  acc=torch.float64)
+    return out, st.float()
+
+
+def _scan_chunked(q, k, v, log_decay, *, state=None, bonus=None,
+                  chunk=128, clamp=75.0):
+    """The kernels' three-phase split in plain PyTorch (f32)."""
+    assert state is None
+    return ref.linear_scan_chunked_ref(q, k, v, log_decay, bonus=bonus,
+                                       chunk=chunk, clamp=clamp)
+
+
+def _f64_scan_check(label, p32, batch, cfg32, gk, gp) -> str:
+    """The kernels' and the plain path's grads against the grads with the
+    scan's forward in f64 (``_scan_f64`` in the kernels' place, the
+    backward the same plain VJP), and the kernels' forward against f64 at
+    the first forward's calls; the kernels' split in plain PyTorch
+    (``_scan_chunked`` in their place) beside them, printed only.  Raises
+    past F64_SCAN_RATIO / FWD_ERR_RATIO; returns the summary."""
+    calls = []
+
+    def recording(q, k, v, ld, **kw):     # a no-grad forward: once a layer
+        calls.append((q, k, v, ld, kw))
+        return kernel(q, k, v, ld, **kw)
+
+    kernel = ls.linear_scan
+    try:
+        ls.linear_scan = _scan_chunked
+        _, _, gc = _grads(p32, batch, cfg32, "cuda")
+        ls.linear_scan = _scan_f64
+        _, _, gt = _grads(p32, batch, cfg32, "cuda")
+        ls.linear_scan = recording
+        with torch.no_grad():
+            loss_fn(p32, batch, cfg32, impl="cuda")
+    finally:
+        ls.linear_scan = kernel
+
+    def worst(ga):
+        return max((float((ga[k].float() - b.float()).norm()
+                          / b.float().norm()), k)
+                   for k, b in gt.items() if b is not None)
+
+    (ek, at_k), (ep, at_p), (ec, at_c) = worst(gk), worst(gp), worst(gc)
+    del gc
+    fwd = []
+    with torch.no_grad():
+        for q, k, v, ld, kw in calls:
+            t = _scan_f64(q, k, v, ld, **kw)[0].double()
+            fwd.append([float((o.double() - t).norm() / t.norm()) for o in (
+                kernel(q, k, v, ld, **kw)[0],
+                ref.linear_scan_ref(q, k, v, ld, **kw)[0],
+                _scan_chunked(q, k, v, ld, **kw)[0])])
+    fk, fp, fc = max(fwd, key=lambda e: e[0] / e[1])
+    del gt, calls
+    free_cuda()
+    line = (f"against the grads at the scan's f64 forward: kernels {ek:.3e} "
+            f"({at_k}), plain {ep:.3e} ({at_p}), ratio {ek / ep:.3f} (tol "
+            f"{F64_SCAN_RATIO:g}; the kernels' split in plain PyTorch "
+            f"{ec:.3e} ({at_c})); forward of {len(fwd)} calls vs f64, "
+            f"||o - o64|| / ||o64||, at the worst ratio: kernel {fk:.4e}, "
+            f"plain {fp:.4e} ({fk / fp:.4f}, tol {FWD_ERR_RATIO:g}), split "
+            f"{fc:.4e}")
+    if ek > F64_SCAN_RATIO * ep or fk > FWD_ERR_RATIO * fp:
+        raise AssertionError(f"{label}: {line}")
+    return line
+
+
+def _grads(params, batch, cfg, impl):
+    """(loss, metrics, {leaf path: grad, or None for a leaf the forward
+    never reads})."""
+    leaves = with_grad(params)
+    loss, metrics = loss_fn(leaves, batch, cfg, impl=impl)
+    named = list(flatten_with_paths(leaves))
+    got = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+    return (float(loss.detach()),
+            {k: float(v.detach()) for k, v in metrics.items()},
+            {k: g for (k, _), g in zip(named, got)})
+
+
+def _train_grad_check(label: str, cfg, params, batch, card: str,
+                      f64_scan: bool = False):
+    """f32 compute over the leaves cast to f32: loss_fn and its grads
+    through the kernels (their autograd.Functions) against the same
+    through the plain versions.  Every leaf the forward reads has a
+    finite, nonzero grad within ``tol`` (relative, in norm) of the plain
+    one; a leaf it never reads (rwkv6's ``cm_norm``, declared but unused
+    in the reference too) has none on either path.  With ``f64_scan``
+    the kernels are held instead against the grads at the scan's f64
+    forward (``_f64_scan_check``), kernels against plain printed only.
+    Returns the kernels' launches."""
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    t0 = time.monotonic()
+    build.reset_launch_counts()
+    lk, mk, gk = _grads(p32, batch, cfg32, None)
+    torch.cuda.synchronize()
+    launched = dict(build.launch_counts)
+    t_k = time.monotonic() - t0
+    t0 = time.monotonic()
+    lp, mp, gp = _grads(p32, batch, cfg32, "torch")
+    torch.cuda.synchronize()
+    t_p = time.monotonic() - t0
+    if build.launch_counts != launched:
+        raise AssertionError(f"{label}: the plain run launched a kernel")
+    tol, held = TRAIN_GRAD_TOL, ""
+    if f64_scan:
+        tol, held = math.inf, "; " + _f64_scan_check(label, p32, batch,
+                                                     cfg32, gk, gp)
+    unread = [k for k, g in gp.items() if g is None]
+    if [k for k, g in gk.items() if g is None] != unread:
+        raise AssertionError(f"{label}: the kernels' path leaves other "
+                             f"leaves without a grad than the plain one")
+    errs, bad = [], []
+    for key, b in gp.items():
+        if b is None:
+            continue
+        a, b = gk[key].float(), b.float()
+        na, nb = float(a.norm()), float(b.norm())
+        if not (math.isfinite(na) and na > 0 and math.isfinite(nb)):
+            bad.append(key)
+            continue
+        errs.append((float((a - b).norm()) / nb, key))
+    errs.sort(reverse=True)
+    worst, worst_at = errs[0]
+    runners = ", ".join(f"{k} {e:.2e}" for e, k in errs[1:4])
+    metrics = {k: f"{mk[k]:.6f}/{mp[k]:.6f}" for k in mk}
+    log(f"train {label} f32 grads: loss kernels {lk:.6f} plain {lp:.6f} "
+        f"(|diff| {abs(lk - lp):.3e}); metrics kernels/plain {metrics}; "
+        f"{len(gp)} leaves, {len(unread)} never read by the forward "
+        f"{unread}, the others' grads finite and nonzero: {not bad}; worst "
+        f"leaf {worst_at} ||g_k - g_p|| / ||g_p|| {worst:.3e} (tol {tol:g};"
+        f" next {runners}){held}; launches {launched}; kernels {t_k:.1f} "
+        f"s, plain {t_p:.1f} s; {card}")
+    if bad:
+        raise AssertionError(f"{label}: leaves without a finite nonzero "
+                             f"grad: {bad[:8]}")
+    if worst > tol:
+        raise AssertionError(f"{label}: grad of {worst_at} off by {worst}")
+    if not any(launched.values()):
+        raise AssertionError(f"{label}: no kernel launched")
+    del gk, gp, p32
+    free_cuda()
+    return launched
+
+
+def _model_flops(cfg, params, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N per token over the parameters
+    that multiply (every leaf but the embedding table, which is looked up;
+    a tied table counts, as the head), plus attention's 12 D per (query,
+    key, head) pair (forward 4 D, backward twice that) at every causal
+    self-attention call."""
+    n = sum(t.numel() for key, t in flatten_with_paths(params)
+            if key != "embed" or cfg.tie_embeddings)
+    calls = sum(g.repeats * sum((ls.mixer == "attn") + ls.shared_attn
+                                for ls in g.pattern) for g in cfg.groups)
+    att = 12 * cfg.head_dim_ * cfg.n_heads * batch * _flash_pairs(seq, 0)
+    return 6.0 * n * batch * seq + calls * att
+
+
+def _range_ms(prof, name: str):
+    """(device ms, calls) of the kernels launched inside the profiler
+    ranges called ``name`` (their host event, children included)."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events()
+           if e.name == name and e.device_type == DeviceType.CPU]
+    us = sum(e.device_time_total if hasattr(e, "device_time_total")
+             else e.cuda_time_total for e in evs)
+    return us / 1e3, len(evs)
+
+
+def _profiled_step(label: str, cfg, params, opt, batch, card: str):
+    """One bf16 train step under torch.profiler, its phases in ranges:
+    device busy time and idle share, and the device time of the forward,
+    the backward (with the remat recompute, which reruns the forward's
+    ops), the plain VJPs of flash and the scan, and AdamW.  Returns the
+    step's metrics and grads (taken before its update)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.autograd import DeviceType
+
+    lr = cosine_schedule(3e-4, warmup=20, total=100)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        leaves = with_grad(params)
+        with record_function("train.forward"):
+            loss, metrics = loss_fn(leaves, batch, cfg)
+        grads = grad_tree(loss, leaves)
+        with record_function("train.adamw"):
+            adamw_update(grads, opt, params, lr=lr)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    ranges = ("train.forward", "train.adamw", "flash_attention.vjp",
+              "linear_scan.vjp")
+    busy = sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in ranges
+               ) / 1e3
+    got = {name: _range_ms(prof, name) for name in ranges}
+    fwd, adam = got["train.forward"][0], got["train.adamw"][0]
+    log(f"train {label} profile (one bf16 step): window {wall * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms, idle share {1 - busy / 1e3 / wall:.4f}; "
+        f"forward {fwd:.1f} ms, backward {busy - fwd - adam:.1f} ms (of it "
+        f"the remat recompute, which reruns the forward's ops, ~{fwd:.1f} "
+        f"ms; flash plain VJP {got['flash_attention.vjp'][0]:.1f} ms over "
+        f"{got['flash_attention.vjp'][1]} calls, scan plain VJP "
+        f"{got['linear_scan.vjp'][0]:.1f} ms over "
+        f"{got['linear_scan.vjp'][1]} calls), AdamW {adam:.1f} ms; {card}")
+    return {k: float(v.detach()) for k, v in metrics.items()}, grads
+
+
+def _train_run(label: str, cfg, batch: int, seq: int, steps: int, card: str,
+               ckpt_dir: str, seed: int = SEED, **tkw):
+    """The launcher's path: ``Trainer`` over the pipeline, bf16, on the
+    card.  Prints per step the loss, step time, tokens/s and model
+    TFLOP/s; checks each loss finite; returns (trainer, its output, the
+    kernels' launches per step, peak device memory GiB)."""
+    tcfg = TrainerConfig(steps=steps, ckpt_every=max(steps // 2, 10),
+                         log_every=10 ** 6, ckpt_dir=ckpt_dir, seed=seed,
+                         **tkw)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    tr = Trainer(cfg, tcfg, DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                       global_batch=batch, seed=seed),
+                 device=DEV, generator=gen)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    out = tr.run()
+    torch.cuda.synchronize()
+    per_step = {k: v / max(1, len(out["history"]))
+                for k, v in build.launch_counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = _model_flops(cfg, out["params"], batch, seq)
+    for h in out["history"]:
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"{label}: loss {h['loss']} at step "
+                                 f"{h['step']}")
+        log(f"train {label} step {h['step']}: loss {h['loss']:.4f}, "
+            f"{h['dt'] * 1e3:.1f} ms, {batch * seq / h['dt']:.0f} tokens/s, "
+            f"model {flops / h['dt'] / 1e12:.1f} TFLOP/s ("
+            f"{flops / h['dt'] / PEAK_FLOPS[torch.bfloat16]:.4f} of 989 "
+            f"TFLOP/s bf16); {card}")
+    log(f"train {label}: launches per step {per_step}; peak device memory "
+        f"{peak:.2f} GiB; model FLOPs a step {flops:.4g}; {card}")
+    return tr, out, per_step, peak
+
+
+def _step_delta(label: str, cfg, params, batch, card: str):
+    """One bf16 train step (lr 1e-3) through the kernels and the same from
+    the same params through the plain versions: each leaf's parameter
+    delta compared (printed; both checked finite)."""
+    p0 = tree_map(lambda t: t.clone(), params)
+    lr = cosine_schedule(1e-3, warmup=0, total=100)
+    stepped = {}
+    for impl in (None, "torch"):
+        tree_map(lambda t, s: t.copy_(s), params, p0)
+        opt = adamw_init(params)
+        make_train_step(cfg, lr=lr, impl=impl)(params, opt, batch)
+        del opt
+        stepped[impl] = (tree_map(lambda t: t.clone(), params)
+                         if impl is None else params)
+        free_cuda()
+    worst, at, same, total = 0.0, None, 0, 0
+    for (k, s0), (_, tk), (_, tp) in zip(
+            flatten_with_paths(p0), flatten_with_paths(stepped[None]),
+            flatten_with_paths(stepped["torch"])):
+        dk, dp = tk.float() - s0.float(), tp.float() - s0.float()
+        if not bool(torch.isfinite(dk).all()):
+            raise AssertionError(f"{label}: non-finite delta at {k}")
+        same += int((tk == tp).sum())
+        total += dp.numel()
+        nb = float(dp.norm())
+        rel = float((dk - dp).norm()) / nb if nb else 0.0
+        if rel > worst:
+            worst, at = rel, k
+    tree_map(lambda t, s: t.copy_(s), params, p0)
+    log(f"train {label} bf16 step delta, kernels vs plain (lr 1e-3): "
+        f"{same / total:.4f} of {total} new parameters equal; worst leaf "
+        f"{at} ||d_k - d_p|| / ||d_p|| {worst:.3e} (informational: AdamW's "
+        f"first step is about lr sign(g), so a grad element near 0 may "
+        f"flip); {card}")
+
+
+def _train_zamba2(card: str, tmp: str):
+    """zamba2-2.7b whole: the grad check, 4 trainer steps, one profiled
+    step, one step's delta kernels vs plain.  Returns the trainer run's
+    flash and scan launches."""
+    cfg = zamba2_2p7b.CONFIG
+    B, S = TRAIN_SHAPES["zamba2"]
+    params = _model(cfg, f"no cut, remat={cfg.remat}; train B={B} S={S}")
+    batch = _pipeline_batch(cfg, B, S, SEED)
+    _train_grad_check("zamba2-2.7b", cfg, params, batch, card)
+    del params
+    free_cuda()
+    tr, out, per_step, _ = _train_run("zamba2-2.7b", cfg, B, S, 4, card,
+                                      f"{tmp}/zamba2")
+    want = _train_launches(cfg)         # 2 x 9 and 2 x 54 at full depth
+    got = {k: per_step[k] for k in want}
+    if got != want:
+        raise AssertionError(f"zamba2 train launches per step {got}, want "
+                             f"{want} (remat: forward and recompute)")
+    launches = {k: build.launch_counts[k] for k in want}
+    params, opt = out["params"], out["opt"]
+    del tr, out
+    free_cuda()
+    _profiled_step("zamba2-2.7b", cfg, params, opt, batch, card)
+    del opt
+    free_cuda()
+    _step_delta("zamba2-2.7b", cfg, params, batch, card)
+    del params, batch
+    free_cuda()
+    return launches
+
+
+def _train_rwkv6(card: str, tmp: str) -> None:
+    """rwkv6-1.6b: the grad check on its first layer and whole (the
+    scan's vector decay and bonus) and 2 trainer steps.  (Its step is not
+    profiled: the plain scan VJP's thousands of small ops a call cost the
+    profiler minutes of host time; ``_vjp_times`` times that VJP.)"""
+    cfg = rwkv6_1p6b.CONFIG
+    B, S = TRAIN_SHAPES["rwkv6"]
+    params = _model(cfg, f"no cut, remat={cfg.remat}; train B={B} S={S}")
+    batch = _pipeline_batch(cfg, B, S, SEED)
+    (g,) = cfg.groups
+    one = cfg.scaled(groups=(dataclasses.replace(g, repeats=1),))
+    _train_grad_check("rwkv6-1.6b first layer", one,
+                      {**params, "groups": tree_map(lambda t: t[:1],
+                                                    params["groups"])},
+                      batch, card)
+    _train_grad_check("rwkv6-1.6b", cfg, params, batch, card, f64_scan=True)
+    del params
+    free_cuda()
+    del batch
+    _train_run("rwkv6-1.6b", cfg, B, S, 2, card, f"{tmp}/rwkv6")
+    free_cuda()
+
+
+def _train_deepseek(card: str, tmp: str) -> None:
+    """deepseek-v3 at full width cut to its first dense layer (the MoE
+    group dropped) with the MTP head: the grad check, 2 trainer steps,
+    and a profiled third whose MTP loss and ``mtp`` grads are checked."""
+    full = deepseek_v3_671b.CONFIG
+    g0 = full.groups[0]
+    cfg = full.scaled(groups=(dataclasses.replace(g0, repeats=1),))
+    B, S = TRAIN_SHAPES["deepseek"]
+    params = _model(cfg, f"cut: groups {g0.repeats} dense + "
+                         f"{full.groups[1].repeats} MoE -> 1 dense, MoE "
+                         f"group dropped; full width, MTP head; train B={B} "
+                         f"S={S}")
+    batch = _pipeline_batch(cfg, B, S, SEED)
+    _train_grad_check("deepseek-v3 (1 dense + MTP)", cfg, params, batch, card)
+    del params
+    free_cuda()
+    tr, out, _, _ = _train_run("deepseek-v3 (1 dense + MTP)", cfg, B, S, 2,
+                               card, f"{tmp}/deepseek")
+    del tr
+    free_cuda()
+    m, grads = _profiled_step("deepseek-v3 (1 dense + MTP)", cfg,
+                              out["params"], out["opt"], batch, card)
+    mtp = list(flatten_with_paths(grads["mtp"]))
+    zero = [k for k, g in mtp if not float(g.float().abs().max()) > 0]
+    log(f"train deepseek-v3 bf16 after 2 steps: ce {m['ce']:.4f}, mtp "
+        f"{m['mtp']:.4f}, loss {m['loss']:.4f}; mtp/* leaves with a nonzero "
+        f"grad: {len(mtp) - len(zero)} of {len(mtp)}; {card}")
+    if zero or not m["mtp"] > 0:
+        raise AssertionError(f"deepseek mtp: loss {m['mtp']}, zero grads "
+                             f"{zero}")
+    del out, grads, batch
+    free_cuda()
+
+
+def _train_whisper(card: str, tmp: str) -> None:
+    """whisper-small whole: the grad check (encoder, cross attention),
+    then an uninterrupted 4-step run (and a profiled fifth step) against
+    one saved asynchronously at step 2 and finished by a fresh trainer
+    from the checkpoint."""
+    cfg = whisper_small.CONFIG
+    B, S = TRAIN_SHAPES["whisper"]
+    params = _model(cfg, f"no cut, remat={cfg.remat}; train B={B} S={S}, "
+                         f"{cfg.n_frontend_tokens} frames")
+    batch = _pipeline_batch(cfg, B, S, SEED)
+    _train_grad_check("whisper-small", cfg, params, batch, card)
+    del params
+    free_cuda()
+    _, a, _, _ = _train_run("whisper-small", cfg, B, S, 4, card,
+                            f"{tmp}/whisper_a")
+    _profiled_step("whisper-small", cfg, a.pop("params"), a.pop("opt"),
+                   batch, card)
+    del batch
+    restart = lambda **kw: Trainer(
+        cfg, TrainerConfig(steps=4, ckpt_every=2, ckpt_dir=f"{tmp}/whisper_b",
+                           log_every=10 ** 6, seed=SEED),
+        DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=SEED),
+        device=DEV, **kw)
+    t1 = restart(generator=torch.Generator(device=DEV).manual_seed(SEED))
+    t1.run(max_steps=2)                     # async save at step 2
+    waits = t1.ckpt.async_waits
+    del t1
+    free_cuda()
+    t2 = restart()
+    b = t2.run()                            # restores at 2, finishes 4
+    la, lb = a["history"][-1]["loss"], b["history"][-1]["loss"]
+    log(f"train whisper-small checkpoint restart: async save at step 2 "
+        f"(trainer pings {waits}), restored run resumed at step "
+        f"{b['history'][0]['step']} and ended at step {b['step']}; final "
+        f"loss {lb:.5f} vs uninterrupted {la:.5f} (|diff| {abs(la - lb):.2e}"
+        f", tol {RESTART_TOL:g}); {card}")
+    if b["step"] != 4 or b["history"][0]["step"] != 2 or \
+            abs(la - lb) >= RESTART_TOL:
+        raise AssertionError("whisper checkpoint restart diverged")
+    del a, b, t2
+    free_cuda()
+
+
+def _train_tiny(card: str, tmp: str) -> None:
+    """The twin of examples/train_tiny_lm.py, TINY_STEPS steps on the
+    card: the mean of the last 10 losses below that of the first 10."""
+    t0 = time.monotonic()
+    # the example installs the trainer's SIGTERM handler: this process's
+    # own comes back once the run is over
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = tiny_lm.main(["--steps", str(TINY_STEPS), "--device", DEV,
+                                "--ckpt-dir", f"{tmp}/tiny"])
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+    first = sum(h["loss"] for h in out["history"][:10]) / 10
+    last = sum(h["loss"] for h in out["history"][-10:]) / 10
+    log(f"train tiny-lm (examples/train_tiny_lm_torch.py): loss {first:.3f}"
+        f" -> {last:.3f} over {out['step']} steps in "
+        f"{time.monotonic() - t0:.1f} s; {card}")
+    if not last < first:
+        raise AssertionError("tiny-lm did not learn")
+
+
+# the kernels' call shapes in the train runs above: (kind, shape) as in
+# FLASH_SHAPES / SCAN_SHAPES
+TRAIN_VJP_SHAPES = {
+    "zamba2 attention": ("flash", FLASH_SHAPES["zamba2 prefill"]),
+    "mamba2 scan": ("scan", SCAN_SHAPES["mamba2"]),
+    "rwkv6 scan": ("scan", SCAN_SHAPES["rwkv6"]),
+    "deepseek MLA": ("flash", FLASH_SHAPES["deepseek MLA train"]),
+    "deepseek MTP attention": ("flash", FLASH_SHAPES["deepseek MTP"]),
+    "whisper encoder": ("flash", FLASH_SHAPES["whisper encoder"]),
+    "whisper self": ("flash", FLASH_SHAPES["whisper self"]),
+    "whisper cross": ("flash", FLASH_SHAPES["whisper cross"]),
+}
+
+
+def _vjp_times(card: str) -> None:
+    """bf16, CUDA events, random inputs at each of TRAIN_VJP_SHAPES: one
+    plain VJP (the backward of the kernel's autograd.Function: the plain
+    forward recomputed, then its grads) against the kernel's forward."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 18)
+    dt = torch.bfloat16
+    for name, (kind, shape) in TRAIN_VJP_SHAPES.items():
+        if kind == "flash":
+            B, Sq, Sk, H, Hkv, D, Dv, causal, window, cap = shape
+            ins = [_randn(g, (B, Sq, H, D), dt), _randn(g, (B, Sk, Hkv, D), dt),
+                   _randn(g, (B, Sk, Hkv, Dv), dt)]
+            kw = dict(causal=causal, window=window, softcap=cap)
+            fwd = lambda: fa.flash_attention(*ins, **kw)
+            plain = lambda q, k, v: ref.flash_attention_ref(q, k, v, **kw)
+        else:
+            (q, k, v, ld), bonus = _scan_inputs(g, shape, dt)
+            ins = [q, k, v, ld, bonus]
+            chunk = shape[6]
+            fwd = lambda: ls.linear_scan(*ins[:4], bonus=ins[4], chunk=chunk)
+            plain = lambda q, k, v, ld, u: ref.linear_scan_ref(
+                q, k, v, ld, bonus=u, chunk=chunk)[0]
+        with torch.no_grad():
+            kernel = cuda_ms(fwd, iters=5, warmup=1)
+            out = fwd()
+        grad_out = torch.randn((out[0] if kind == "scan" else out).shape,
+                               generator=g, device=DEV).to(dt)
+        leaves = [None if t is None else t.detach().requires_grad_(True)
+                  for t in ins]
+        op = "flash_attention" if kind == "flash" else "linear_scan"
+        vjp = cuda_ms(lambda: build.vjp(op, plain, leaves, grad_out),
+                      iters=3, warmup=1)
+        log(f"train VJP bf16 at {name} {shape}: plain VJP {vjp:.3f} ms a "
+            f"call, kernel forward {kernel:.4f} ms ({vjp / kernel:.0f}x); "
+            f"CUDA events; {card}")
+        del ins, leaves, out, grad_out
+        free_cuda()
+
+
+def phase_train(card: str):
+    """The training slice on the card.  Returns the flash and scan
+    launches of the zamba2 trainer run (the slice's main path)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        launches = _train_zamba2(card, tmp)
+        _train_rwkv6(card, tmp)
+        _train_deepseek(card, tmp)
+        _train_whisper(card, tmp)
+        _train_tiny(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _vjp_times(card)
+    return launches
+
+
+# ----------------------------------------------------------------------------
 
 
 def _model(cfg, note: str):
@@ -2253,7 +2853,7 @@ def _model(cfg, note: str):
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     params = init_params(cfg, gen, device=DEV)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"weights: {n_params} random bf16 parameters in "
         f"{time.monotonic() - t0:.1f} s")
     return params
@@ -2329,6 +2929,9 @@ def main() -> int:
     done("mla (deepseek)")
     launches["flash_attention"] += phase_cross(card, flash_times)
     done("cross (llama-vision, whisper)")
+    for name, n in phase_train(card).items():
+        launches[name] += n
+    done("train")
 
     kernels = []
     for name in REPLACES:
@@ -2356,14 +2959,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@
 caller has fetched it to the host (``jax.device_get``): nested dicts of
 numpy arrays, bf16 leaves as ml_dtypes ``bfloat16`` arrays.  It never
 imports JAX.  The key layout is the same in both packages, so the bridge
-is 1:1, leaf for leaf.
+is 1:1, leaf for leaf.  :func:`opt_state_from_jax` carries the
+reference's AdamW state the same way, and :func:`tree_to_numpy` carries
+the port's tensors back, so tests can hand state across in both
+directions.
 """
 
 from __future__ import annotations
@@ -14,7 +17,10 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["numpy_to_tensor", "params_from_jax"]
+from repro_torch.optim.adamw import AdamWState
+
+__all__ = ["numpy_to_tensor", "opt_state_from_jax", "params_from_jax",
+           "tree_to_numpy"]
 
 
 def numpy_to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
@@ -34,3 +40,32 @@ def params_from_jax(tree: Any, device=None) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return numpy_to_tensor(np.asarray(tree), device)
+
+
+def opt_state_from_jax(state: Any, device=None) -> AdamWState:
+    """The reference's ``AdamWState`` of numpy arrays (after
+    ``jax.device_get``) -> the port's, of tensors."""
+    step, m, v = state
+    return AdamWState(step=numpy_to_tensor(np.asarray(step), device),
+                      m=params_from_jax(m, device),
+                      v=params_from_jax(v, device))
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bits as a numpy array on the host; bf16 through its
+    ``uint16`` view, as an ml_dtypes ``bfloat16`` array."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """Nested dicts (or an ``AdamWState``) of tensors -> the same of numpy
+    arrays, bits unchanged."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, AdamWState):
+        return AdamWState(*(tree_to_numpy(x) for x in tree))
+    return tensor_to_numpy(tree)

@@ -13,7 +13,9 @@ Nothing here runs at import time, and nothing falls back: a missing
 The wrappers share what sits around a launch: :func:`entry` types a
 library's C entry point once, :func:`count` adds a launch to
 :data:`launch_counts`, :func:`check` raises on an input the kernel does
-not take, and :func:`raise_on` raises on a failed launch.
+not take, and :func:`raise_on` raises on a failed launch.  For gradients,
+:func:`refuse_grad` stops a raw wrapper from cutting the autograd graph,
+and :func:`vjp` is the backward of a kernel's ``autograd.Function``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -137,6 +141,32 @@ def reset_launch_counts() -> None:
 def count(name: str) -> None:
     with _count_lock:
         launch_counts[name] += 1
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` if grad mode is on and an input requires
+    grad: a kernel writes into a fresh tensor with no ``grad_fn``, so
+    autograd would stop at it without a word.  Its ``autograd.Function``
+    calls the wrapper in its forward, where grad mode is off."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the raw wrapper has no gradient; inputs that require "
+            f"grad go through kernels.ops (its autograd.Function)")
+
+
+def vjp(name: str, plain, ins, g: torch.Tensor):
+    """The backward of a kernel's ``autograd.Function``: ``plain(*ins)``
+    recomputed under ``torch.enable_grad()``, and its grads against each
+    of ``ins`` that requires grad (None for the others), under a profiler
+    range ``<name>.vjp``."""
+    with torch.profiler.record_function(f"{name}.vjp"):
+        with torch.enable_grad():
+            out = plain(*ins)
+        want = [t for t in ins if t is not None and t.requires_grad]
+        got = iter(torch.autograd.grad(out, want, g) if want else ())
+        return tuple(next(got) if t is not None and t.requires_grad
+                     else None for t in ins)
 
 
 def check(cond: bool, msg: str) -> None:

@@ -20,6 +20,18 @@ the CPU; for CUDA tensors it checks what the kernel relies on
 (:func:`check_inputs`), launches it on the current stream, counts the
 launch in ``build.launch_counts``, and raises if the launch failed.  There
 is no fallback from a CUDA tensor to the plain version.
+
+Gradients: :class:`FlashAttention` is the ``torch.autograd.Function``
+over the kernel, and the only caller of :func:`flash_attention` that may
+hand it inputs requiring grad.  Its forward is the kernel (the plain
+version on the CPU); its backward recomputes the plain version from the
+saved q, k, v under ``torch.enable_grad()`` and returns its VJP.  The
+reference has no backward kernel either (its Pallas kernel has no
+``custom_vjp``, and its trainer differentiates the XLA path), so this is
+the reference's own gradient, not a fallback: the forward stays on the
+kernel.  :func:`flash_attention` called directly on inputs that require
+grad, with grad mode on, raises ``RuntimeError``: the kernel writes into a
+fresh tensor with no ``grad_fn``, so autograd would silently stop there.
 """
 
 from __future__ import annotations
@@ -78,7 +90,9 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """``(B, Sq, H, Dv)`` in q's dtype.  Causal masking aligns q[0] with
-    k[0] (no offset), as in the TPU kernel."""
+    k[0] (no offset), as in the TPU kernel.  No gradient: see
+    :class:`FlashAttention`."""
+    build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         softcap=softcap, scale=scale)
@@ -98,3 +112,22 @@ def flash_attention(
     raise_on(err, "flash_attention")
     count("flash_attention")
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the kernel forward, the
+    plain version's VJP backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return flash_attention(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        plain = lambda q, k, v: _ref.flash_attention_ref(q, k, v, **ctx.args)
+        return build.vjp("flash_attention", plain, ins, g) + (None,) * 4

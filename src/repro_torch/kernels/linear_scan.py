@@ -30,6 +30,21 @@ current stream, counts the call in ``build.launch_counts`` (one count for
 the three launches), and raises if a launch failed.  There is no fallback
 from a CUDA tensor to the plain version.  Like the TPU kernel it starts
 from a zero state only: a given ``state`` raises on every device.
+
+Gradients: :class:`LinearScan` is the ``torch.autograd.Function`` over the
+kernels, and the only caller of :func:`linear_scan` that may hand it
+inputs requiring grad.  Its forward is the kernels (the plain version on
+the CPU); its backward recomputes the plain version from the saved
+inputs under ``torch.enable_grad()`` and returns its VJP for q, k, v,
+``log_decay`` and ``bonus``.  The reference has no backward kernel either
+(its trainer differentiates the XLA path), so this is the reference's own
+gradient, not a fallback: the forward stays on the kernels.  Mamba2's B
+and C stay stride-0 views in the forward; the backward returns their
+full-shaped grads and the ``expand`` that made the views sums them over
+the heads.  The final state has no gradient: train mode does not read it.
+:func:`linear_scan` called directly on inputs that require grad, with
+grad mode on, raises ``RuntimeError``, since its outputs would carry no
+``grad_fn``.
 """
 
 from __future__ import annotations
@@ -45,6 +60,8 @@ from repro_torch.kernels.build import check, count, raise_on
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232448        # bytes of shared memory a block may use on sm_90
+ZERO_STATE_ONLY = ("the kernel computes from a zero state (prefill); an "
+                   "initial state is not taken")
 
 
 def mma_shape(K: int, Vd: int, L: int) -> bool:
@@ -96,9 +113,10 @@ def linear_scan(
     chunk: int = 128,
     clamp: float = 75.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out (B, S, H, Vd) in v's dtype, final state (B, H, K, Vd) f32)``."""
-    check(state is None, "the kernel computes from a zero state (prefill); "
-          "an initial state is not taken")
+    """``(out (B, S, H, Vd) in v's dtype, final state (B, H, K, Vd) f32)``.
+    No gradient: see :class:`LinearScan`."""
+    build.refuse_grad("linear_scan", q, k, v, log_decay, bonus)
+    check(state is None, ZERO_STATE_ONLY)
     if q.device.type == "cpu":
         return _ref.linear_scan_ref(q, k, v, log_decay, bonus=bonus,
                                     chunk=chunk, clamp=clamp)
@@ -156,3 +174,25 @@ def linear_scan(
     raise_on(err, "linear_scan")
     count("linear_scan")
     return out, st
+
+
+class LinearScan(torch.autograd.Function):
+    """:func:`linear_scan` with a gradient: the kernels' forward, the plain
+    version's VJP backward (module docstring).  Returns ``(out, final
+    state)``, the state marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay, bonus, chunk, clamp):
+        ctx.save_for_backward(q, k, v, log_decay, bonus)
+        ctx.args = dict(chunk=chunk, clamp=clamp)
+        out, st = linear_scan(q, k, v, log_decay, bonus=bonus, **ctx.args)
+        ctx.mark_non_differentiable(st)
+        return out, st
+
+    @staticmethod
+    def backward(ctx, g, _g_state):
+        ins = [None if t is None else t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        plain = lambda q, k, v, ld, u: _ref.linear_scan_ref(
+            q, k, v, ld, bonus=u, **ctx.args)[0]
+        return build.vjp("linear_scan", plain, ins, g) + (None, None)

@@ -12,6 +12,13 @@ Every op takes ``impl``:
 
 ``decode_attention`` and ``linear_scan_step`` are plain PyTorch under
 every ``impl``: the reference has no Pallas kernel for them either.
+
+``flash_attention`` and ``linear_scan`` under ``"cuda"`` go through their
+kernels' ``torch.autograd.Function`` (``FlashAttention``, ``LinearScan``),
+so train mode differentiates through the kernels: the forward is the
+kernel, the backward the plain version's VJP, as the reference (which has
+no backward kernel) differentiates its plain path.  The paged kernels
+serve only and have no gradient.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import check
 
 IMPLS = ("torch", "cuda")
 
@@ -61,8 +69,8 @@ def paged_scatter(k_pages, v_pages, index, k_vals, v_vals, *,
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None, impl: Optional[str] = None):
     if resolve_impl(impl, q.device) == "cuda":
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
+        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap,
+                                        scale)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     softcap=softcap, scale=scale)
 
@@ -77,8 +85,8 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=0, softcap=0.0,
 def linear_scan(q, k, v, log_decay, *, state=None, bonus=None, chunk=128,
                 impl: Optional[str] = None):
     if resolve_impl(impl, q.device) == "cuda":
-        return _ls.linear_scan(q, k, v, log_decay, state=state, bonus=bonus,
-                               chunk=chunk)
+        check(state is None, _ls.ZERO_STATE_ONLY)
+        return _ls.LinearScan.apply(q, k, v, log_decay, bonus, chunk, 75.0)
     return _ref.linear_scan_ref(q, k, v, log_decay, state=state, bonus=bonus,
                                 chunk=chunk)
 

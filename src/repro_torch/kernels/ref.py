@@ -313,12 +313,13 @@ def linear_scan_step(
     return out, new_state
 
 
-def _scan_chunks(q, k, v, log_decay, state, chunk):
-    """The padded, chunked f32 views both scans share: ``(n, B, L, H, *)``
-    stacks of q, k, v and the log decay (``Kd`` = 1 for scalar decay)."""
+def _scan_chunks(q, k, v, log_decay, state, chunk, acc=torch.float32):
+    """The padded, chunked views both scans share, in ``acc`` (f32 unless
+    asked): ``(n, B, L, H, *)`` stacks of q, k, v and the log decay
+    (``Kd`` = 1 for scalar decay), and the state."""
     B, S, H, K = q.shape
     Vd = v.shape[-1]
-    ld = log_decay.float()
+    ld = log_decay.to(acc)
     if ld.dim() == 3:
         ld = ld[..., None]
     pad = (-S) % chunk
@@ -327,11 +328,11 @@ def _scan_chunks(q, k, v, log_decay, state, chunk):
     n = (S + pad) // chunk
 
     def chunks(t):
-        return t.reshape(B, n, chunk, H, t.shape[-1]).float().transpose(0, 1)
+        return t.reshape(B, n, chunk, H, t.shape[-1]).to(acc).transpose(0, 1)
 
     if state is None:
         state = torch.zeros((B, H, K, Vd), device=q.device)
-    return chunks(q), chunks(k), chunks(v), chunks(ld), state, n
+    return chunks(q), chunks(k), chunks(v), chunks(ld), state.to(acc), n
 
 
 def linear_scan_exact(q, k, v, log_decay, *, state=None, bonus=None,
@@ -389,21 +390,24 @@ def linear_scan_exact(q, k, v, log_decay, *, state=None, bonus=None,
 
 
 def linear_scan_ref(q, k, v, log_decay, *, state=None, bonus=None,
-                    chunk: int = 128, clamp: float = 75.0):
+                    chunk: int = 128, clamp: float = 75.0,
+                    acc: torch.dtype = torch.float32):
     """Factored chunked scan (what the kernel implements).
 
     Scalar decay (mamba2): mathematically exact.  Vector decay (rwkv6):
     factored form ``(q*exp(clq)) . (k*exp(-cl))`` with amplification clamped
     at ``exp(clamp)`` -- matches the exact oracle to ~1e-3 for realistic
-    decays.
+    decays.  Computed in ``acc`` (f32; f64 gives a check the same function
+    with f32's rounding taken out); the state is returned in it.
     """
     B, S, H, K = q.shape
     Vd = v.shape[-1]
     vec = log_decay.dim() == 4
-    qs, ks, vs, lds, st, n = _scan_chunks(q, k, v, log_decay, state, chunk)
+    qs, ks, vs, lds, st, n = _scan_chunks(q, k, v, log_decay, state, chunk,
+                                          acc)
     idx = torch.arange(chunk, device=q.device)
-    strict_lower = (idx[:, None] > idx[None, :]).float()
-    eye = torch.eye(chunk, device=q.device)
+    strict_lower = (idx[:, None] > idx[None, :]).to(acc)
+    eye = torch.eye(chunk, device=q.device, dtype=acc)
     rwkv = bonus is not None
     ys = []
     for c in range(n):
@@ -415,7 +419,7 @@ def linear_scan_ref(q, k, v, log_decay, *, state=None, bonus=None,
         scores = torch.einsum("blhk,bmhk->bhlm", q_eff, k_eff)
         scores = scores * strict_lower[None, None]
         if rwkv:
-            dsc = torch.einsum("blhk,blhk,hk->bhl", qc, kc, bonus.float())
+            dsc = torch.einsum("blhk,blhk,hk->bhl", qc, kc, bonus.to(acc))
         else:
             dsc = torch.einsum("blhk,blhk->bhl", qc, kc)
         scores = scores + dsc[:, :, :, None] * eye[None, None]

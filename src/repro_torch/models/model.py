@@ -9,11 +9,13 @@ the MoE FFN (dense dispatch, ``models/moe.py``).  Enc-dec configs
 train/prefill; a VLM (llama-3.2-vision) attends to the frontend's tokens
 as they are.  DeepSeek-V3's multi-token-prediction head has its
 parameters here (``mtp``), and train mode hands its input out as
-``aux["mtp_hidden"]``; its loss comes with the training slice of the
-port.
+``aux["mtp_hidden"]``; its loss is ``train/train_step.py``'s.
 
 Modes:
-  train:   full-seq forward (a forward only here); returns (logits, None, aux)
+  train:   full-seq forward, differentiable (the kernels through their
+           ``autograd.Function``s, ``kernels/ops.py``), each pattern
+           repeat under ``cfg.remat`` (:func:`_remat`); returns (logits,
+           None, aux)
            (aux: the MoE losses ``moe_aux``/``moe_z`` summed in f32 over
            every MoE layer, zeros without one; every mode returns them)
   prefill: full-seq forward, returns (last-position logits, cache)
@@ -243,11 +245,47 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
             "moe_z": torch.zeros((), device=device)}
 
 
-def layer_params(gp, rep: int):
-    """One repeat's weights: views into stacked (group) params."""
-    if isinstance(gp, dict):
-        return {k: layer_params(v, rep) for k, v in gp.items()}
-    return gp[rep]
+def _save_unbatched_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the outputs of un-batched matrix products,
+    recompute everything else (``checkpoint_dots_with_no_batch_dims``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn`` under ``cfg.remat``: ``"none"`` as it is; ``"full"`` saves
+    only its inputs and recomputes the rest in the backward; ``"dots"``
+    saves the un-batched matrix products' outputs too."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, got "
+                         f"{cfg.remat!r}")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_unbatched_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():     # nothing is saved to recompute
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def unstack(gp) -> List[Any]:
+    """Each repeat's weights as views into stacked (group) params, cut by
+    one ``unbind`` per leaf (in train mode, one gradient buffer per leaf
+    in the backward)."""
+    if not isinstance(gp, dict):
+        return list(gp.unbind(0))
+    per = {k: unstack(v) for k, v in gp.items()}
+    return [dict(zip(per, rep)) for rep in zip(*per.values())]
 
 
 def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
@@ -325,30 +363,34 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
     aux = _zero_aux(x.device)
     new_cache: Dict[str, Any] = {}
     for gi, g in enumerate(groups_def):
-        gp = groups_params[f"g{gi}"]
         gc = cache["groups"][f"g{gi}"] if cache is not None else None
         # prefill collects each repeat's cache and stacks it at the end
         produced: Dict[str, Dict[str, list]] = {}
-        for rep in range(g.repeats):
-            lp = layer_params(gp, rep)
+
+        # g, gc and produced bound now: under remat the backward's
+        # recompute calls this after the loop has moved on
+        def repeat(x, aux, lp, rep, g=g, gc=gc, produced=produced):
             for pi, ls in enumerate(g.pattern):
                 key = f"p{pi}"
-                if mode == "decode":
-                    # the STACKED cache is written at [layer, ...] in place
-                    x, _, aux = _apply_layer(
-                        lp[key], ls, x, aux, cfg=cfg, mode=mode,
-                        lcache=gc.get(key), pos=pos, kv_source=kv_source,
-                        shared_params=shared_params, layer_idx=rep,
-                        impl=impl)
-                    continue
+                # decode writes the STACKED cache at [layer, ...] in place
+                decode = mode == "decode"
                 x, nc, aux = _apply_layer(
-                    lp[key], ls, x, aux, cfg=cfg, mode=mode, lcache=None,
-                    pos=pos, kv_source=kv_source,
-                    shared_params=shared_params, impl=impl)
+                    lp[key], ls, x, aux, cfg=cfg, mode=mode,
+                    lcache=gc.get(key) if decode else None, pos=pos,
+                    kv_source=kv_source, shared_params=shared_params,
+                    layer_idx=rep if decode else None, impl=impl)
                 if mode == "prefill" and nc:
                     per = produced.setdefault(key, {})
                     for name, t in nc.items():
                         per.setdefault(name, []).append(t)
+            return x, aux
+
+        # train: each repeat one call under cfg.remat, its weight slices
+        # passed in as inputs (the shared block and kv_source are read from
+        # the closure)
+        body = _remat(cfg, repeat) if mode == "train" else repeat
+        for rep, lp in enumerate(unstack(groups_params[f"g{gi}"])):
+            x, aux = body(x, aux, lp, rep)
         if mode == "decode":
             new_cache[f"g{gi}"] = gc
         elif mode == "prefill":

@@ -32,7 +32,7 @@ from repro_torch.kernels.paged_attention import to_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_norm, rope_tables, rotate, torch_dtype
 from repro_torch.models.model import (apply_model, check_paged_support,
-                                      layer_params)
+                                      unstack)
 from repro_torch.runtime.kv_store import PagedKVStore, kv_layer_order
 
 __all__ = ["check_paged_support", "prefill_kv", "prefill_kv_chunked",
@@ -97,8 +97,11 @@ def _paged_forward(params, cfg: ArchConfig, store: PagedKVStore,
     # one set of RoPE tables for every layer, q and k alike
     rope = rope_tables(positions, hd, cfg.rope_theta, cfg.rope_pct, dt)
 
+    groups = {}         # each group's repeats as views, cut once a step
     for li, (gi, pi, rep) in enumerate(store.layer_order):
-        lp = layer_params(params["groups"][f"g{gi}"][f"p{pi}"], rep)
+        if gi not in groups:
+            groups[gi] = unstack(params["groups"][f"g{gi}"])
+        lp = groups[gi][rep][f"p{pi}"]
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         ap = lp["attn"]
         # plain 2-D products on views of the (D, heads, hd) weights:

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` and
 everything ``chip_smoke.py`` imports loads neither JAX nor the reference
-package, and no source line of the port imports them."""
+package, and no source line of the port, of ``chip_smoke.py`` or of the
+port's example (``examples/train_tiny_lm_torch.py``) imports them."""
 
 import os
 import re
@@ -34,7 +35,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
 def test_port_sources_do_not_import_jax_or_reference():
     pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b"
                      r"|from\s+(jax|jaxlib|repro)(\.|\s))", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "train_tiny_lm_torch.py"]
     assert len(files) > 15
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
