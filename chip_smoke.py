@@ -9,10 +9,14 @@ deepseek-v3's MLA (cut in depth), llama-3.2-vision's cross attention (cut
 in depth) and whisper-small's encoder and decoder end to end, and compare
 every path's logits through the kernels with the same through the plain
 versions; train zamba2-2.7b, rwkv6-1.6b, deepseek-v3 (cut in depth) and
-whisper-small through the kernels' gradients; beside them, on the host,
-the paper's data-structure grid and robustness gauntlet.
+whisper-small through the kernels' gradients; run the sharded train step
+(expert-parallel olmoe, context-parallel starcoder2 through the flash
+kernel with its query offset), the int8 ring all-reduce, the pipeline and
+the dry-run on 8 ranks sharing the card; beside them, on the host, the
+paper's data-structure grid and robustness gauntlet.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
+    python3 chip_smoke.py --dist   # the card, build and dist phases alone
 
 Phases (any failure raises and exits non-zero; none is caught):
 
@@ -38,7 +42,9 @@ Phases (any failure raises and exits non-zero; none is caught):
               Sk=1500; llama-vision's self attention B=2, S=2048, H=64,
               Hkv=8, D=128, causal, and cross attention Sq=2048, Sk=1601;
               phase 11's deepseek MLA at B=2, S=1024 and its MTP block's
-              attention, H=Hkv=128, D=Dv=56; and the small edge cases of ``FLASH_EDGE_CASES``) within
+              attention, H=Hkv=128, D=Dv=56; phase 12's context-parallel
+              shard (2, 256, 2048, 36, 4, 128, 128) at q_offset 0 and 1792,
+              SDPA beside it with the offset mask; and the small edge cases of ``FLASH_EDGE_CASES``) within
               2e-5 (f32) / 2e-2 (bf16); the
               scatter bit-exact through numpy indices and through a
               prepared index, and timed both ways beside two index_put_
@@ -58,7 +64,7 @@ Phases (any failure raises and exits non-zero; none is caught):
               worker, prefix cache; no use-after-free, no leaks, poisons ==
               frees, 0 host->device KV bytes per decode step, both kernels
               launched, finite logits below the poison scale.
-   smr serve -- the same traffic at 8 new tokens under every safe scheme
+   smr serve -- the same traffic at 4 new tokens under every safe scheme
               of the SMR registry (SimulatedSMRPolicy, ``gen`` backend)
               and HazardPtrPOP and EpochPOP on ``vec``, each run a process
               of its own (``chip_smoke.py --smr-run SCHEME BACKEND``), four
@@ -67,7 +73,7 @@ Phases (any failure raises and exits non-zero; none is caught):
               publishes, the largest ping stall and the policy's host
               time per decode step.
    fleet replay -- a trace of fleet_load.py's tenant mix (Poisson, 0.5
-              requests/s for 16 s) replayed in real time under
+              requests/s for 10 s) replayed in real time under
               EpochPOP-pool, HazardPtrPOP, EpochPOP, HP and EBR, scored
               against MLPerf's Llama-2-70B server limits (TTFT 2 s, 200 ms
               per token): attainment, goodput, TTFT p50/p99, the largest
@@ -170,7 +176,28 @@ Phases (any failure raises and exits non-zero; none is caught):
               whisper: an async checkpoint at step 2 restored by a fresh
               Trainer, its final loss within 2e-2 of an uninterrupted run.
               Then examples/train_tiny_lm_torch.py's 200 steps: the loss
-              drops.
+              drops.  Each train shape's plain VJP is timed beside its
+              bound and, where SDPA computes the forward, SDPA's backward.
+12. dist   -- distribution: 8 ranks (processes of their own) on the one
+              card over gloo, the kernels built before by this process.
+              Gloo's all-gather and send / recv on CUDA tensors are staged
+              through host memory (``parallel/collectives.py``) and
+              counted.  olmoe-1b-7b at full width cut to 2 layers on
+              (data=2, model=4), expert parallel: loss_fn and its grads in
+              f32 and bf16 against the unsharded run (rank 0), no token
+              dropped and the aux losses off, the unsharded run's routing
+              replayed: f32 loss and MoE outputs within 1e-4 relative,
+              every grad within 1e-3; then two bf16 train steps with the
+              config's own capacity and aux.  starcoder2-7b at full width
+              cut to 2 layers on (data=1, model=8), context parallel (36
+              heads over 8): prefill logits (f32 1e-3, bf16 as the dense
+              prefill checks) and an f32 step's grads (1e-3) against the
+              unsharded ones, each rank's flash launches.  The int8 ring
+              all-reduce (tests/test_parallel.py's bounds, and one olmoe
+              layer's gradient size timed), the GPipe pipeline (4 stages
+              x 2 replicas, d=4096, atol 1e-4), and three dry-run cells in
+              subprocesses (rwkv6 decode_32k, whisper prefill_32k
+              multi-pod, gemma2 long_500k: SKIP).
 
 After each group of phases a ``time: ... done at N s`` line gives the
 time since the card phase began.  The last two lines of standard output
@@ -186,6 +213,7 @@ import gc
 import io
 import json
 import math
+import os
 import re
 import shutil
 import signal
@@ -197,7 +225,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
@@ -208,16 +238,26 @@ from repro_torch.core.gauntlet import (gauntlet_cell,  # noqa: E402
 from repro_torch.core.smr.registry import PAPER_SET  # noqa: E402
 from repro_torch.core.workload import STRUCTURES, run_trial  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.paged_attention import build_block_table  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import (apply_model, init_cache,  # noqa: E402
-                                      init_params, unstack)
+                                      init_params, params_logical_axes,
+                                      unstack)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import apply_moe, capacity  # noqa: E402
 from repro_torch.obs import SLOSpec, SLOTracker  # noqa: E402
+from repro_torch.parallel import collectives  # noqa: E402
+from repro_torch.parallel import sharding as sh  # noqa: E402
+from repro_torch.parallel.compression import (compress_with_feedback,  # noqa: E402
+                                              compressed_psum)
+from repro_torch.parallel.pipeline import (make_mlp_stage,  # noqa: E402
+                                           pipeline_forward)
 from repro_torch.runtime.kv_store import PagedKVStore  # noqa: E402
 from repro_torch.runtime.reclaim import supported_schemes  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -231,7 +271,8 @@ from repro_torch.optim.adamw import (adamw_init, adamw_update,  # noqa: E402
 from repro_torch.train.checkpoint import flatten_with_paths  # noqa: E402
 from repro_torch.train.train_step import (grad_tree, loss_fn,  # noqa: E402
                                           make_prefill_step, make_serve_step,
-                                          make_train_step, with_grad)
+                                          make_train_step, value_and_grad,
+                                          with_grad)
 from repro_torch.train.trainer import (Trainer, TrainerConfig,  # noqa: E402
                                        stub_frontend)
 
@@ -657,6 +698,15 @@ FLASH_SHAPES = {
     "deepseek MLA train": (2, 1024, 1024, 128, 128, 192, 128, True, 0, 0.0),
     "deepseek MTP": (2, 1024, 1024, 128, 128, 56, 56, True, 0, 0.0),
 }
+# the dist phase's context-parallel shards: starcoder2-7b's 36 heads over
+# model=8 at B=2, S=2048, each rank's 256 query rows against all 2048 keys,
+# at the first and the last shard's offset: name -> (shape, q_offset)
+FLASH_CP_SHAPES = {
+    "starcoder2 CP shard 0": ((2, 256, 2048, 36, 4, 128, 128, True, 0, 0.0),
+                              0),
+    "starcoder2 CP shard 7": ((2, 256, 2048, 36, 4, 128, 128, True, 0, 0.0),
+                              1792),
+}
 # (B, Sq, Sk, H, Hkv, D, Dv, causal, window, softcap): the flash kernel's
 # edges, the cases of tests/test_torch_dense_kernels.py's card test (this
 # machine has no JAX to run that file) -- head dims 1..256 (16-byte copies
@@ -696,19 +746,18 @@ def _randn(g, shape, dtype=torch.float32):
     return torch.randn(shape, generator=g, device=DEV).to(dtype)
 
 
-def _flash_pairs(S: int, window: int) -> int:
-    """Unmasked (query, key) pairs of one causal head of length S."""
-    n = np.arange(1, S + 1)
-    return int((np.minimum(n, window) if window else n).sum())
-
-
-def flash_work(shape):
+def flash_work(shape, q_offset: int = 0):
     """(bytes, operations) of one flash call at a FLASH_SHAPES entry, for
-    an element size of 1: each input read once and the output written
-    once; 2 (D + Dv) operations per unmasked (query, key, head)."""
+    an element size of 1: each input read once -- of K and V only the rows
+    some query sees, from the lowest row's window start to the highest
+    row's position when causal (the kernel loads no other) -- and the
+    output written once; 2 (D + Dv) operations per unmasked (query, key,
+    head), the query rows at ``q_offset`` on."""
     B, Sq, Sk, H, Hkv, D, Dv, causal, window, _ = shape
-    elems = B * (Sq * H * D + Sk * Hkv * (D + Dv) + Sq * H * Dv)
-    pairs = _flash_pairs(Sq, window) if causal else Sq * Sk
+    hi = min(Sk, q_offset + Sq) if causal else Sk
+    lo = max(q_offset - window + 1, 0) if window else 0
+    elems = B * (Sq * H * D + (hi - lo) * Hkv * (D + Dv) + Sq * H * Dv)
+    pairs = kops.flash_pairs(Sq, Sk, causal, window, q_offset)
     return elems, 2 * (D + Dv) * B * H * pairs
 
 
@@ -733,27 +782,42 @@ def check_flash(g, dtype):
         if not ok:
             raise AssertionError(f"flash_attention {case} {dtype}: {err}")
         worst = max(worst, err)
-    for name, shape in FLASH_SHAPES.items():
+    cases = [(name, shape, 0) for name, shape in FLASH_SHAPES.items()] + [
+        (name, shape, off) for name, (shape, off) in FLASH_CP_SHAPES.items()]
+    for name, shape, off in cases:
         B, Sq, Sk, H, Hkv, D, Dv, causal, window, cap = shape
         q = _randn(g, (B, Sq, H, D), dtype)
         k = _randn(g, (B, Sk, Hkv, D), dtype)
         v = _randn(g, (B, Sk, Hkv, Dv), dtype)
         kw = dict(causal=causal, window=window, softcap=cap)
+        if off:
+            kw["q_offset"] = off
         got = fa.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err, ok = within(got, want, tol)
-        log(f"  flash_attention {str(dtype)[6:]} {name} {shape}: max |err| "
+        log(f"  flash_attention {str(dtype)[6:]} {name} {shape}"
+            f"{f' q_offset {off}' if off else ''}: max |err| "
             f"{err:.3e} (tol {tol:g} abs + rel)")
         if not ok:
             raise AssertionError(f"flash_attention {name} {dtype}: {err}")
         worst = max(worst, err)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 10, 2)
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 3, 1)
-        elems, flops = flash_work(shape)
+        elems, flops = flash_work(shape, off)
         bound, by = bound_ms(elems * q.element_size(), flops, dtype)
         lib = None
-        if not window and not cap:
+        if off:
+            # the shard's causal mask at its offset, explicit
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            mask = (torch.arange(Sk, device=DEV)[None, :]
+                    <= torch.arange(Sq, device=DEV)[:, None] + off)
+            lib = cuda_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, attn_mask=mask,
+                              enable_gqa=H != Hkv), 10, 2)
+            del qt, kt, vt, mask
+        elif not window and not cap:
             # the same function in one PyTorch call, as a yardstick only
             # (its efficient backends take Dv != D, Sq != Sk and GQA)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1048,8 +1112,14 @@ def _policy_ms_per_step(eng) -> str:
             f"{1e3 * pol.wait_s / steps:.3f} waiting")
 
 
+# new tokens a request in the smr serve runs: 4 since the distribution
+# slice (8 before) -- the heavy schemes' runs are the simulator's host
+# time per decode step, and the script's time limit holds the dist phase
+SMR_MAX_NEW = 4
+
+
 def smr_serve_run(cfg, params, scheme: str, backend: str, card: str,
-                  max_new: int = 8) -> None:
+                  max_new: int = SMR_MAX_NEW) -> None:
     """The serve phase's traffic (8 requests, 4 sharing a 96-token prefix)
     at ``max_new`` tokens each under one scheme of the SMR registry: the
     simulator-backed policy decides when each device page is freed (and
@@ -1142,7 +1212,7 @@ def phase_smr_serve() -> None:
         f"time")
 
 
-def phase_fleet_replay(cfg, params, card: str, duration_s: float = 16.0,
+def phase_fleet_replay(cfg, params, card: str, duration_s: float = 10.0,
                        rate_rps: float = 0.5) -> None:
     """A fleet_load.py-style trace (its tenant mix, Poisson arrivals at
     ``rate_rps`` for ``duration_s``, token ids over starcoder2's vocab)
@@ -2494,7 +2564,8 @@ def _model_flops(cfg, params, batch: int, seq: int) -> float:
             if key != "embed" or cfg.tie_embeddings)
     calls = sum(g.repeats * sum((ls.mixer == "attn") + ls.shared_attn
                                 for ls in g.pattern) for g in cfg.groups)
-    att = 12 * cfg.head_dim_ * cfg.n_heads * batch * _flash_pairs(seq, 0)
+    att = 12 * cfg.head_dim_ * cfg.n_heads * batch * kops.flash_pairs(
+        seq, seq, True, 0)
     return 6.0 * n * batch * seq + calls * att
 
 
@@ -2622,7 +2693,7 @@ def _step_delta(label: str, cfg, params, batch, card: str):
 
 
 def _train_zamba2(card: str, tmp: str):
-    """zamba2-2.7b whole: the grad check, 4 trainer steps, one profiled
+    """zamba2-2.7b whole: the grad check, 2 trainer steps, one profiled
     step, one step's delta kernels vs plain.  Returns the trainer run's
     flash and scan launches."""
     cfg = zamba2_2p7b.CONFIG
@@ -2632,7 +2703,9 @@ def _train_zamba2(card: str, tmp: str):
     _train_grad_check("zamba2-2.7b", cfg, params, batch, card)
     del params
     free_cuda()
-    tr, out, per_step, _ = _train_run("zamba2-2.7b", cfg, B, S, 4, card,
+    # 2 trainer steps (4 before the distribution slice: the script's time
+    # limit holds the dist phase)
+    tr, out, per_step, _ = _train_run("zamba2-2.7b", cfg, B, S, 2, card,
                                       f"{tmp}/zamba2")
     want = _train_launches(cfg)         # 2 x 9 and 2 x 54 at full depth
     got = {k: per_step[k] for k in want}
@@ -2788,10 +2861,37 @@ TRAIN_VJP_SHAPES = {
 }
 
 
+# SDPA's backward beside the plain VJP, at the callers' shapes whose
+# forward SDPA computes (no window, no softcap)
+SDPA_BWD_SHAPES = ("zamba2 attention", "deepseek MLA", "whisper encoder",
+                   "whisper self", "whisper cross")
+
+
+def _vjp_bound(kind: str, shape, leaves, grad_out, dtype):
+    """(ms, what bounds it) for a backward's work.  Flash: its products,
+    2.5x the forward's operations (S = Q K^T recomputed, dV = P^T dO,
+    dP = dO V^T, dQ = dS K, dK = dS^T Q against the forward's two),
+    against q, k, v, o and dO read and dq, dk, dv written once.  The scan:
+    its bytes -- the inputs and the output's grad read, a grad of every
+    input written once (its products, a few per element, lie far below
+    the bytes at these shapes)."""
+    if kind == "flash":
+        elems, flops = flash_work(shape)
+        B, Sq, Sk, H, Hkv, D, Dv = shape[:7]
+        elems += B * Sq * H * Dv + B * (Sq * H * D + Sk * Hkv * (D + Dv))
+        return bound_ms(elems * 2, 2.5 * flops, dtype)
+    ins = [t for t in leaves if t is not None]
+    nbytes = 2 * sum(_stored_bytes(t) for t in ins) + _stored_bytes(grad_out)
+    return bound_ms(nbytes, 0.0, dtype)
+
+
 def _vjp_times(card: str) -> None:
     """bf16, CUDA events, random inputs at each of TRAIN_VJP_SHAPES: one
     plain VJP (the backward of the kernel's autograd.Function: the plain
-    forward recomputed, then its grads) against the kernel's forward."""
+    forward recomputed, then its grads) against the kernel's forward, the
+    backward's bound and, where SDPA computes the forward, SDPA's backward
+    (``enable_gqa``, through ``torch.autograd.grad``) as the library's
+    time."""
     g = torch.Generator(device=DEV).manual_seed(SEED + 18)
     dt = torch.bfloat16
     for name, (kind, shape) in TRAIN_VJP_SHAPES.items():
@@ -2819,9 +2919,22 @@ def _vjp_times(card: str) -> None:
         op = "flash_attention" if kind == "flash" else "linear_scan"
         vjp = cuda_ms(lambda: build.vjp(op, plain, leaves, grad_out),
                       iters=3, warmup=1)
+        bound, by = _vjp_bound(kind, shape, leaves, grad_out, dt)
+        lib = "none (no single call)"
+        if name in SDPA_BWD_SHAPES:
+            qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                          .requires_grad_(True) for t in ins)
+            o = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)
+            go = grad_out.transpose(1, 2).contiguous()
+            sdpa = cuda_ms(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), go, retain_graph=True), iters=5, warmup=1)
+            lib = f"SDPA backward {sdpa:.4f} ms"
+            del qt, kt, vt, o, go
         log(f"train VJP bf16 at {name} {shape}: plain VJP {vjp:.3f} ms a "
             f"call, kernel forward {kernel:.4f} ms ({vjp / kernel:.0f}x); "
-            f"CUDA events; {card}")
+            f"{lib}; backward bound {bound:.6f} ms ({by}); CUDA events; "
+            f"{card}")
         del ins, leaves, out, grad_out
         free_cuda()
 
@@ -2840,6 +2953,624 @@ def phase_train(card: str):
         shutil.rmtree(tmp, ignore_errors=True)
     _vjp_times(card)
     return launches
+
+
+# ----------------------------------------------------------------------------
+# 12. dist
+# ----------------------------------------------------------------------------
+
+DIST_RANKS = 8
+DIST_TIMEOUT_S = 480.0           # the ranks' limit, spawn included
+# Gloo on CUDA tensors (an H100, torch 2.11.0+cu128; each collective tried
+# alone in 8 processes of their own): its all-gather into a tensor crashes
+# the process (SIGSEGV) and send / recv abort (SIGABRT: a device pointer
+# handed to its TCP transport).  Those two are staged through host memory
+# (``parallel/collectives.py``), and counted; all-reduce, reduce-scatter,
+# all-to-all and broadcast run on CUDA tensors as they are, in this phase.
+GLOO_STAGED = ("all_gather_into_tensor", "send_recv")
+DIST_LOSS_TOL = 1e-4             # f32 loss and MoE outputs, relative
+DIST_BF16_LOSS_TOL = 2e-2        # bf16 loss, relative (rounding order)
+DIST_F32_FLIPS = 1e-3            # f32 token-layers choosing other experts
+COMPRESS_TOL = 0.02              # tests/test_parallel.py's bounds
+FEEDBACK_TOL = 0.005
+PIPE_ATOL = 1e-4
+DRYRUN_CELLS = (("rwkv6_1p6b", "decode_32k", False),
+                ("whisper_small", "prefill_32k", True),
+                ("gemma2_27b", "long_500k", False))
+DRYRUN_TIMEOUT_S = 600.0
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+class _Worst:
+    """The largest ||a - b|| / ||b|| over pairs added, whether every pair
+    was finite with b nonzero, and the keys whose distance passed their
+    limit (``limit``: one number, or a dict by key)."""
+
+    def __init__(self, limit=math.inf):
+        self.limit, self.over = limit, []
+        self.value, self.at, self.finite, self.n = 0.0, None, True, 0
+
+    def tol(self, key) -> float:
+        return self.limit[key] if isinstance(self.limit, dict) else self.limit
+
+    def add(self, key, a, b) -> None:
+        self.n += 1
+        na, nb = float(a.float().norm()), float(b.float().norm())
+        if not (math.isfinite(na) and math.isfinite(nb) and nb > 0):
+            self.finite = False
+            return
+        e = _rel(a, b)
+        if e > self.value:
+            self.value, self.at = e, key
+        if e > self.tol(key):
+            self.over.append(key)
+
+    @property
+    def ok(self) -> bool:
+        return self.finite and not self.over
+
+
+class _MoETap:
+    """Records every MoE layer's output during a forward (the model's
+    ``apply_moe`` wrapped)."""
+
+    def __enter__(self):
+        self.outs, self._was = [], model_mod.apply_moe
+
+        def tap(p, x, *, cfg):
+            out, aux = self._was(p, x, cfg=cfg)
+            self.outs.append(out.detach())
+            return out, aux
+        model_mod.apply_moe = tap
+        return self
+
+    def __exit__(self, *exc):
+        model_mod.apply_moe = self._was
+
+
+class _EPPin:
+    """The unsharded run's expert choices, recorded and replayed in the
+    sharded run.  The router's top-k is discrete: f32 noise of a
+    reduction order flips a near-tie now and then among 8192 tokens x 64
+    experts, and the flipped token's output then differs by a whole
+    expert's share (at 2 layers on an H100, unpinned: MoE outputs 6.4e-3
+    apart).  Pinned, the two runs differ only by their numerics.
+    ``record`` keeps each layer's router top-k indices (T, k) from the
+    forward; ``replay`` hands each expert-parallel shard its own tokens'
+    recorded choices (the shard at mesh coordinate (d, m) holds batch rows
+    d*B_l.. and sequence positions m*S_l..) with its own gates' weights,
+    and counts the tokens whose own choice differed.  Under remat "full"
+    the backward reruns the layers' forwards in reverse order: call j of
+    the 2L a step makes is layer j, then layer 2L - 1 - j."""
+
+    def __init__(self, top_k: int, n_layers: int):
+        self.k, self.n, self.rec, self.flips = top_k, n_layers, [], 0
+
+    def _patched(self, fn):
+        real = moe_mod._top_k
+
+        def top_k(x, k):
+            if k != self.k:             # the capacity selection: not pinned
+                return real(x, k)
+            return fn(real, x, k)
+        moe_mod._top_k = top_k
+        return real
+
+    @contextlib.contextmanager
+    def record(self):
+        def fn(real, x, k):
+            v, i = real(x, k)
+            if len(self.rec) < self.n:      # the forward's; not the rerun
+                self.rec.append(i)
+            return v, i
+        real = self._patched(fn)
+        try:
+            yield self
+        finally:
+            moe_mod._top_k = real
+
+    @contextlib.contextmanager
+    def replay(self, coord, B: int, S: int, shape_local):
+        d, m = coord
+        Bl, Sl = shape_local
+        rows = (torch.arange(Bl, device=DEV)[:, None] + d * Bl) * S \
+            + m * Sl + torch.arange(Sl, device=DEV)[None, :]
+        at = [0]
+
+        def fn(real, x, k):
+            own = real(x, k)[1]
+            j = at[0] if at[0] < self.n else 2 * self.n - 1 - at[0]
+            idx = self.rec[j][rows.reshape(-1)]
+            if at[0] < self.n:
+                self.flips += int((torch.sort(own, -1).values
+                                   != torch.sort(idx, -1).values)
+                                  .any(-1).sum())
+            at[0] += 1
+            return x.gather(-1, idx), idx
+        real = self._patched(fn)
+        try:
+            yield self
+        finally:
+            moe_mod._top_k = real
+
+
+def _compare_sharded(rank, mesh, dp, batch, cfg, ref,
+                     pin=contextlib.nullcontext(), moe_tol=math.inf,
+                     grad_tol=math.inf):
+    """value_and_grad on ``mesh`` over the DTensor parameters ``dp`` (under
+    ``pin``: a routing replay), held leaf by leaf against ``ref`` = (loss,
+    MoE outputs, grads by path) of the unsharded run, which rank 0 holds:
+    each sharded tensor is gathered whole (a collective) and compared on
+    rank 0, one at a time, under its limit (``_Worst``).  Returns
+    (sharded loss, worst MoE output, worst grad) on rank 0."""
+    sh.set_mesh(mesh)
+    try:
+        db = {k: sh.distribute(v, mesh, sh.batch_spec(mesh))
+              for k, v in batch.items()}
+        with _MoETap() as tap, pin:
+            (loss, _), grads = value_and_grad(dp, db, cfg)
+        free_cuda()     # the step's cached blocks back before the gathers
+        loss = float(sh.full(loss))
+        moe, grad = _Worst(moe_tol), _Worst(grad_tol)
+        for i, o in enumerate(tap.outs):
+            o = sh.full(o)
+            if rank == 0:
+                moe.add(f"layer {i}", o, ref[1][i])
+        del tap
+        for key, g in flatten_with_paths(grads):
+            g = sh.full(g)
+            if rank == 0:
+                grad.add(key, g, ref[2][key])
+            del g
+        return loss, moe, grad
+    finally:
+        sh.set_mesh(None)
+
+
+def _whole(params, batch, cfg, pin=contextlib.nullcontext()):
+    """The unsharded run: (loss, MoE outputs, grads by path)."""
+    with _MoETap() as tap, pin:
+        (loss, _), grads = value_and_grad(params, batch, cfg)
+    return float(loss), tap.outs, dict(flatten_with_paths(grads))
+
+
+def _f32(tree):
+    return tree_map(lambda t: t.float(), tree)
+
+
+def _dist_olmoe(rank: int, failed: list) -> dict:
+    """olmoe-1b-7b cut to 2 layers on (data=2, model=4): expert parallelism
+    over model, FSDP over data.  Held against the unsharded step (rank 0
+    runs it first, the others waiting) with no token dropped and the aux
+    losses off; then two bf16 train steps with the config's own capacity
+    and aux."""
+    full = olmoe_1b_7b.CONFIG
+    base = full.scaled(groups=(dataclasses.replace(full.groups[0],
+                                                   repeats=2),))
+    cmp_cfg = base.scaled(moe=dataclasses.replace(
+        base.moe, capacity_factor=8.0, aux_coef=0.0, router_z_coef=0.0))
+    B, S = 4, 2048
+    mesh = make_host_mesh((2, 4), ("data", "model"))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = init_params(base, gen, device=DEV)
+    dp16 = sh.tree_distribute(mesh, params, params_logical_axes(base))
+    if rank != 0:
+        del params              # only rank 0 runs the unsharded step
+        free_cuda()
+    batch = _pipeline_batch(base, B, S, SEED + 19)
+    if rank == 0:
+        log(
+            f"model: {base.name} layers={base.n_layers} d_model="
+            f"{base.d_model} experts={base.moe.n_experts} top-"
+            f"{base.moe.top_k} (cut: {full.n_layers} -> {base.n_layers} "
+            f"layers; full width; mesh data=2 x model=4, EP over model, FSDP "
+            f"over data; the comparison's overrides: capacity_factor 8.0 (no "
+            f"token drops: C = T on every shard), aux_coef = router_z_coef = "
+            f"0 (EP's aux is a mean over shards); remat {base.remat}; train "
+            f"B={B} S={S})")
+    out = {}
+    T = base.n_layers * B * S
+    # every run under the unsharded f32 run's routing (recorded there,
+    # replayed in the others): the runs then differ by their numerics only
+    pin = _EPPin(base.moe.top_k, base.n_layers)
+    ref32 = None        # rank 0: the unsharded f32 run's MoE outputs, grads
+    own = ({}, {})      # rank 0: the unsharded bf16 run's distance from it
+    for dtype in ("float32", "bfloat16"):
+        cfg = cmp_cfg.scaled(dtype=dtype)
+        f32 = dtype == "float32"
+        ref = None
+        moe_tol, grad_tol = DIST_LOSS_TOL, TRAIN_GRAD_TOL
+        if rank == 0 and f32:
+            ref = _whole(_f32(params), batch, cfg, pin.record())
+        elif rank == 0:
+            # the bf16 limits: max(SLICE_TOL, 2 x the unsharded bf16 run's
+            # own distance from the f32 one), per MoE layer and grad leaf
+            ref = _whole(params, batch, cfg, pin.replay((0, 0), B, S, (B, S)))
+            own = ({f"layer {i}": _rel(o, ref32[1][i])
+                    for i, o in enumerate(ref[1])},
+                   {k: _rel(g, ref32[2][k].to(DEV))
+                    for k, g in ref[2].items()})
+            moe_tol, grad_tol = ({k: max(SLICE_TOL, 2 * e)
+                                  for k, e in d.items()} for d in own)
+            ref32 = None
+        free_cuda()
+        if f32:         # the unsharded run's choices to every rank
+            rec = torch.stack(pin.rec) if rank == 0 else torch.empty(
+                (base.n_layers, B * S, cfg.moe.top_k), dtype=torch.long,
+                device=DEV)
+            dist.broadcast(rec, 0)
+            pin.rec = list(rec)
+        pin.flips = 0
+        t0 = time.monotonic()
+        ls, moe, grad = _compare_sharded(
+            rank, mesh, _f32(dp16) if f32 else dp16, batch, cfg, ref,
+            pin.replay(mesh.get_coordinate(), B, S, (B // 2, S // 4)),
+            moe_tol, grad_tol)
+        t_s = time.monotonic() - t0
+        flips = torch.tensor([pin.flips], device=DEV)
+        dist.all_reduce(flips)
+        if rank == 0:
+            lu = ref[0]
+            loss_rel = abs(ls - lu) / abs(lu)
+            tol = DIST_LOSS_TOL if f32 else DIST_BF16_LOSS_TOL
+            # f32 noise flips a near-tie now and then; a wrong router or
+            # wrong tokens on a shard would flip most of them
+            flips_ok = not f32 or int(flips) <= DIST_F32_FLIPS * T
+            held = loss_rel <= tol and moe.ok and grad.ok and flips_ok
+            lim = ((lambda w, o: f"tol {w.limit:g}") if f32 else
+                   (lambda w, o: f"tol max({SLICE_TOL:g}, 2 x the "
+                    f"unsharded bf16 run's own distance from f32, "
+                    f"{min(o.values()):.3e}-{max(o.values()):.3e})"))
+            log(
+                f"dist olmoe EP {dtype}: loss sharded {ls:.6f} unsharded "
+                f"{lu:.6f} (rel {loss_rel:.3e}, tol {tol:g}); {moe.n} MoE "
+                f"layers' outputs max rel {moe.value:.3e} "
+                f"({lim(moe, own[0])}; over: {moe.over}); grads {grad.n} "
+                f"leaves finite and nonzero: {grad.finite}, worst {grad.at} "
+                f"{grad.value:.3e} ({lim(grad, own[1])}; over: {grad.over}); "
+                f"the unsharded f32 run's routing replayed (the run's own "
+                f"choice differed at {int(flips)} of {T} token-layers"
+                + (f", tol {DIST_F32_FLIPS * T:g}" if f32 else "")
+                + f"); sharded value_and_grad with the comparison "
+                f"{1e3 * t_s:.0f} ms: {held}")
+            if not held:
+                failed.append(f"dist olmoe {dtype}: sharded vs unsharded")
+            if f32:     # kept for the bf16 limits; the grads on the host
+                ref32 = (ref[0], ref[1],
+                         {k: g.cpu() for k, g in ref[2].items()})
+        del ref
+        free_cuda()
+    if rank == 0:
+        del params
+    # two bf16 steps with the config's own capacity and aux
+    sh.set_mesh(mesh)
+    try:
+        db = {k: sh.distribute(v, mesh, sh.batch_spec(mesh))
+              for k, v in batch.items()}
+        opt = adamw_init(dp16)
+        step = make_train_step(base)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.monotonic()
+            dp16, opt, m = step(dp16, opt, db)
+            losses.append(float(sh.full(m["loss"])))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.monotonic() - t0))
+        out["steps_ms"], out["losses"] = times, losses
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        sh.set_mesh(None)
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"dist olmoe bf16 steps: losses {losses}")
+    del dp16, opt, db
+    free_cuda()
+    return out
+
+
+def _dist_cp(rank: int, failed: list) -> dict:
+    """starcoder2-7b cut to 2 layers on (data=1, model=8): 36 heads do not
+    divide 8, so attention runs context parallel (each rank the flash
+    kernel on its 256 query rows at q_offset = rank x 256).  The prefill
+    logits (bf16, f32) and one f32 step's grads against the unsharded
+    ones (rank 0)."""
+    full = starcoder2_7b.CONFIG
+    cfg = full.scaled(groups=(dataclasses.replace(full.groups[0],
+                                                  repeats=2),))
+    B, S = 2, 2048
+    mesh = make_host_mesh((1, 8), ("data", "model"))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = init_params(cfg, gen, device=DEV)
+    dp16 = sh.tree_distribute(mesh, params, params_logical_axes(cfg))
+    if rank != 0:
+        del params
+        free_cuda()
+    batch = _pipeline_batch(cfg, B, S, SEED + 20)
+    if rank == 0:
+        log(
+            f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model}"
+            f" heads={cfg.n_heads}/{cfg.n_kv_heads} (cut: {full.n_layers} -> "
+            f"{cfg.n_layers} layers; full width; mesh data=1 x model=8, "
+            f"context parallel: {cfg.n_heads} % 8 != 0; prefill and train "
+            f"B={B} S={S})")
+    out, logits = {"flash": {}}, {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.scaled(dtype=dtype)
+        cast = _f32 if dtype == "float32" else (lambda t: t)
+        sh.set_mesh(mesh)
+        try:
+            dt = sh.distribute(batch["tokens"], mesh, sh.batch_spec(mesh))
+            build.reset_launch_counts()
+            got = make_prefill_step(c)(cast(dp16), dt)[0]
+            torch.cuda.synchronize()
+            out["flash"][dtype] = build.launch_counts["flash_attention"]
+            got = sh.full(got)
+        finally:
+            sh.set_mesh(None)
+        if rank == 0:
+            logits[dtype] = (got, make_prefill_step(c)(cast(params),
+                                                       batch["tokens"])[0])
+        del got
+        free_cuda()
+    if rank == 0:
+        own = within(logits["bfloat16"][1], logits["float32"][1], 0.0)[0]
+        for dtype, tol in (("float32", 1e-3),
+                           ("bfloat16", max(SLICE_TOL, 2 * own))):
+            a, b = logits[dtype]
+            err, ok = within(a, b, tol)
+            ok = ok and bool(torch.isfinite(a).all())
+            log(
+                f"dist starcoder2 CP prefill {dtype}: last-position logits "
+                f"{tuple(a.shape)} sharded vs unsharded max |diff| "
+                f"{err:.4e} (tol {tol:.4g} abs + rel): {ok}")
+            if not ok:
+                failed.append(f"dist starcoder2 CP {dtype} logits")
+    del logits
+    c = cfg.scaled(dtype="float32")
+    ref = None
+    if rank == 0:
+        ref = _whole(_f32(params), batch, c)
+        del params
+        free_cuda()
+    dist.barrier()
+    build.reset_launch_counts()
+    ls, _, grad = _compare_sharded(rank, mesh, _f32(dp16), batch, c, ref)
+    out["flash"]["train"] = build.launch_counts["flash_attention"]
+    if rank == 0:
+        ok = grad.finite and grad.value <= TRAIN_GRAD_TOL
+        log(
+            f"dist starcoder2 CP train f32: loss sharded {ls:.6f} unsharded "
+            f"{ref[0]:.6f}; {grad.n} leaves finite and nonzero: "
+            f"{grad.finite}, worst {grad.at} {grad.value:.3e} (tol "
+            f"{TRAIN_GRAD_TOL:g}): {ok}")
+        if not ok:
+            failed.append("dist starcoder2 CP grads")
+    del ref, dp16
+    free_cuda()
+    return out
+
+
+def _dist_compression(rank: int, failed: list) -> dict:
+    """compressed_psum over the 8 ranks: the reference test's input and
+    bounds, and one olmoe layer's gradient size, timed."""
+    mesh = make_host_mesh((DIST_RANKS,), ("data",))
+    rng = np.random.default_rng(SEED + 21)
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)
+                         * 0.01).to(DEV)
+    got = compressed_psum(x, mesh, "data")
+    exact = x * DIST_RANKS                # replicated input: psum = n x
+    rel = float((got - exact).norm() / exact.norm())
+    grads, residual = {"w": x}, {"w": torch.zeros_like(x)}
+    errs = []
+    for _ in range(4):
+        mean, residual = compress_with_feedback(grads, residual, mesh, "data")
+        errs.append(float((mean["w"] - x).abs().max()))
+    layer = olmoe_1b_7b.CONFIG
+    n = sum(t.numel() for t in tree_leaves(
+        L.abstract(model_mod._layer_specs(layer, layer.groups[0].pattern[0]))))
+    g = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    big = torch.randn(n, generator=g, device=DEV) * 0.01   # same everywhere
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.monotonic()
+    got_big = compressed_psum(big, mesh, "data")
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.monotonic() - t0)
+    num = den = 0.0
+    for a, b in zip(got_big.chunk(16), big.chunk(16)):   # exact = n x
+        num += float((a - DIST_RANKS * b).square().sum())
+        den += float((DIST_RANKS * b).square().sum())
+    big_rel = math.sqrt(num / den)
+    ok = rel < COMPRESS_TOL and errs[-1] < FEEDBACK_TOL and \
+        big_rel < COMPRESS_TOL
+    if rank == 0:
+        log(
+            f"dist compressed_psum (int8 ring, {DIST_RANKS} ranks): 4096 "
+            f"values rel {rel:.4e} (tol {COMPRESS_TOL}); feedback max err "
+            f"after 4 rounds {errs[-1]:.4e} (tol {FEEDBACK_TOL}; "
+            f"{', '.join(f'{e:.2e}' for e in errs)}); one olmoe layer's "
+            f"gradient size ({n} f32 values, the same on every rank) rel {big_rel:.4e} in {ms:.1f} ms "
+            f"(host clock, 8 ranks on one card, its hops staged through "
+            f"host memory over gloo: not a link's rate): {ok}")
+    if not ok:
+        failed.append(f"dist compression: {rel}, {errs}, {big_rel}")
+    del big, got_big
+    free_cuda()
+    return {"compress_ms": ms, "n": n}
+
+
+def _dist_pipeline(rank: int, failed: list) -> dict:
+    """pipeline_forward: 4 stages x 2 replicas at d = 4096, 8 microbatches
+    of 4, f32, against the sequential run on every rank."""
+    d, n_stages, n_micro, mb = 4096, 4, 8, 4
+    mesh = make_host_mesh((2, n_stages), ("replica", "stage"))
+    rng = np.random.default_rng(SEED + 23)
+    s = 1.0 / np.sqrt(d)
+    p = {k: torch.from_numpy((rng.standard_normal((n_stages, d, d)) * s)
+                             .astype(np.float32)).to(DEV)
+         for k in ("w1", "w2")}
+    x = torch.from_numpy(rng.standard_normal((n_micro, mb, d))
+                         .astype(np.float32)).to(DEV)
+    stage_fn, _ = make_mlp_stage(d)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    y = pipeline_forward(stage_fn, p, x, mesh=mesh)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.monotonic() - t0)
+    want = x
+    for st in range(n_stages):
+        want = stage_fn({k: v[st] for k, v in p.items()}, want)
+    err = float((y - want).abs().max())
+    ok = err <= PIPE_ATOL
+    if rank == 0:
+        log(
+            f"dist pipeline_forward: {n_stages} stages x 2 replicas, d={d}, "
+            f"{n_micro} microbatches of {mb}, f32: max |err| vs sequential "
+            f"{err:.3e} (atol {PIPE_ATOL:g}) in {ms:.1f} ms (host clock): "
+            f"{ok}")
+    if not ok:
+        failed.append(f"dist pipeline: {err}")
+    return {"pipeline_ms": ms}
+
+
+def _dist_rank(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One rank of the dist phase (a process of its own, all on cuda:0).
+    Rank 0 prints the comparisons as they finish; every check runs, and a
+    failed one raises at the end.  Writes the rank's results to
+    ``out_dir/rank<r>.json``."""
+    # 8 ranks share the card's 80 GB: segments that grow in place keep a
+    # rank's cache from fragmenting (set before its first allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    collectives.stage_through_host(GLOO_STAGED)
+    collectives.init("gloo", rank, world, init)
+    failed: list = []          # every check runs; a failure raises at the end
+    res: dict = {}
+    try:
+        res["olmoe"] = _dist_olmoe(rank, failed)
+        res["cp"] = _dist_cp(rank, failed)
+        res["compression"] = _dist_compression(rank, failed)
+        res["pipeline"] = _dist_pipeline(rank, failed)
+        res["staged"] = dict(collectives.staged)
+        res["staged_bytes"] = dict(collectives.staged_bytes)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if failed:
+        raise AssertionError(f"rank {rank}: {failed}")
+
+
+def _start_dryruns(out_dir: str):
+    """The dry-run's cells, each ``python -m repro_torch.launch.dryrun`` in
+    a process of its own (the ``fake`` group, meta tensors: the host's
+    CPU, beside the ranks)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out_dir] + (
+            ["--multi-pod"] if multi else [])
+        procs.append((arch, shape, multi, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def _finish_dryruns(procs, out_dir: str, deadline: float) -> None:
+    for arch, shape, multi, p in procs:
+        try:
+            text, _ = p.communicate(timeout=max(1.0, deadline
+                                                - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for *_, q in procs:
+                q.kill()
+                q.wait()
+            raise
+        said = [ln for ln in text.splitlines() if ln.startswith("[dryrun]")]
+        name = f"{arch}_{shape}{'_mp' if multi else ''}.json"
+        cell = json.loads(Path(out_dir, name).read_text())
+        if shape == "long_500k":
+            ok = p.returncode == 0 and any("SKIP" in ln for ln in said)
+            log(f"dryrun {arch} x {shape}: {said[0] if said else text[-300:]}"
+                f": {ok}")
+        else:
+            r = cell.get("roofline", {})
+            ok = (p.returncode == 0 and cell.get("status") == "ok"
+                  and cell.get("n_devices") == (512 if multi else 256)
+                  and r.get("flops_per_device", 0) > 0 and r.get("bottleneck")
+                  in ("compute", "memory", "collective"))
+            log(f"dryrun {arch} x {shape} ({'multi' if multi else 'single'}"
+                f"-pod, {cell.get('n_devices')} devices): {said[0] if said else ''}"
+                f"; per device {r.get('flops_per_device', 0):.4e} FLOPs, "
+                f"{r.get('hbm_bytes_per_device', 0):.4e} bytes, collectives "
+                f"{r.get('collective_bytes_per_device', 0):.4e} bytes "
+                f"{ {k: f'{v:.3e}' for k, v in r.get('collective_by_kind', {}).items()} }; "
+                f"step >= {1e3 * r.get('step_time_lower_bound_s', 0):.3f} ms "
+                f"({r.get('bottleneck')}; H100 data-sheet bounds, not "
+                f"measured); memory {cell.get('memory', {}).get('per_device_total_gib')}"
+                f" GiB a device: {ok}")
+        if not ok:
+            raise AssertionError(f"dryrun {arch} x {shape}: {text[-2000:]} "
+                                 f"{cell.get('trace', '')}")
+
+
+def phase_dist(card: str, dry=None) -> int:
+    """The distribution slice on the card: 8 ranks (processes) on one
+    H100 over gloo; the kernels were built by this process before.
+    ``dry``: the dry-run cells' processes and their output directory, if
+    started earlier (on the host's CPU, while the card trains, so they
+    take no CPU from the ranks).  Returns the flash launches of the ranks'
+    main paths (the CP prefills and train step)."""
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dry, dry_dir = dry or (_start_dryruns(tmp), tmp)
+    try:
+        try:
+            collectives.spawn_ranks(_dist_rank, DIST_RANKS, (tmp,),
+                                    DIST_TIMEOUT_S, init_dir=tmp)
+        except BaseException:
+            for *_, p in dry:
+                p.kill()
+                p.wait()
+            raise
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+        steps = [ms for r in ranks for ms in r["olmoe"]["steps_ms"]]
+        log(f"dist olmoe EP bf16 train steps (own capacity and aux): losses "
+            f"{ranks[0]['olmoe']['losses']}; step {min(steps):.0f}-"
+            f"{max(steps):.0f} ms over ranks and steps (8 ranks sharing one "
+            f"card: not a multi-GPU step time); peak memory a rank "
+            f"{min(r['olmoe']['peak_gib'] for r in ranks):.2f}-"
+            f"{max(r['olmoe']['peak_gib'] for r in ranks):.2f} GiB; {card}")
+        flash = {k: [r["cp"]["flash"][k] for r in ranks]
+                 for k in ("bfloat16", "float32", "train")}
+        log(f"dist starcoder2 CP flash launches per rank: "
+            + "; ".join(f"{k} {v} (sum {sum(v)})" for k, v in flash.items()))
+        staged = {k: sum(r["staged"].get(k, 0) for r in ranks)
+                  for k in GLOO_STAGED}
+        staged_b = {k: sum(r["staged_bytes"].get(k, 0) for r in ranks)
+                    for k in GLOO_STAGED}
+        log(f"dist collectives staged through host memory (gloo has no CUDA "
+            f"path for them here), calls over all ranks {staged}, bytes "
+            f"{staged_b}; gloo ran every other collective on the card's "
+            f"tensors itself")
+        if any(n == 0 for n in flash["bfloat16"] + flash["train"]):
+            raise AssertionError(f"dist: a CP rank launched no flash {flash}")
+        _finish_dryruns(dry, dry_dir, time.monotonic() + DRYRUN_TIMEOUT_S)
+        log(f"time: dist phase {time.monotonic() - t0:.1f} s")
+        return sum(flash["bfloat16"]) + sum(flash["train"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ----------------------------------------------------------------------------
@@ -2867,6 +3598,13 @@ def main() -> int:
         return smr_run_main(*sys.argv[2:4])
     if sys.argv[1:2] == ["--structures"]:
         phase_structures()      # the process start_structures starts
+        return 0
+    if sys.argv[1:2] == ["--dist"]:
+        # the dist phase alone, for iterating on it (prints no result)
+        card = phase_card()
+        phase_build()
+        launches = phase_dist(card)
+        log(f"dist alone: flash launches {launches}; {card}")
         return 0
     t0 = time.monotonic()
 
@@ -2929,9 +3667,22 @@ def main() -> int:
     done("mla (deepseek)")
     launches["flash_attention"] += phase_cross(card, flash_times)
     done("cross (llama-vision, whisper)")
-    for name, n in phase_train(card).items():
-        launches[name] += n
-    done("train")
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = _start_dryruns(dry_dir)          # host CPU, beside the train phase
+    try:
+        for name, n in phase_train(card).items():
+            launches[name] += n
+        done("train")
+        # this slice's path: the ranks' context-parallel flash launches
+        launches["flash_attention"] += phase_dist(card, (dry, dry_dir))
+        done("dist")
+    except BaseException:
+        for *_, p in dry:
+            p.kill()
+            p.wait()
+        raise
+    finally:
+        shutil.rmtree(dry_dir, ignore_errors=True)
 
     kernels = []
     for name in REPLACES:

@@ -58,6 +58,10 @@
 // the CUDA cores: 256 threads each hold a 4 x 4 block of scores and 4 rows
 // of the accumulator; Q, K, V and P go through shared memory.
 //
+// q_offset: the absolute position of q's first row, so query row s sits at
+// s + q_offset against keys 0..Sk-1 in the causal and window masks (a
+// context-parallel shard's slice of the sequence); 0 aligns q[0] with k[0].
+//
 // The launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
@@ -87,7 +91,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(
     const float* __restrict__ v,  // (B, Sk, Hkv, Dv)
     float* __restrict__ out,      // (B, Sq, H, Dv)
     int Sq, int Sk, int H, int Hkv, int D, int Dv, float scale,
-    float softcap, int causal, int window) {
+    float softcap, int causal, int window, int q_offset) {
   const int G = H / Hkv;
   const int b = blockIdx.y / Hkv;
   const int h = blockIdx.y - b * Hkv;
@@ -117,9 +121,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(
     q_s[rr * Dp + d] = x;
   }
 
-  // the kv tiles some row of this block can see
-  const int q_first = r0 / G;
-  const int q_last = min(Sq - 1, (r0 + kRows - 1) / G);
+  // the kv tiles some row of this block can see (absolute positions)
+  const int q_first = r0 / G + q_offset;
+  const int q_last = min(Sq - 1, (r0 + kRows - 1) / G) + q_offset;
   int t_lo = 0;
   int t_hi = (Sk + kCols - 1) / kCols - 1;
   if (causal) t_hi = min(t_hi, q_last / kCols);
@@ -177,7 +181,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(
     // takes part in the shuffles, padded rows included)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = (r0 + ty + 16 * i) / G;
+      const int qpos = (r0 + ty + 16 * i) / G + q_offset;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -249,7 +253,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(
 int launch_f32(const float* q, const float* k, const float* v, float* out,
                int B, int Sq, int Sk, int H, int Hkv, int D, int Dv,
                float scale, float softcap, int causal, int window,
-               cudaStream_t stream) {
+               int q_offset, cudaStream_t stream) {
   const int Dp = D | 1;
   const size_t smem =
       sizeof(float) * ((size_t)kRows * Dp + (size_t)kCols * Dp +
@@ -263,7 +267,8 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
   const int G = H / Hkv;
   dim3 grid((Sq * G + kRows - 1) / kRows, B * Hkv);
   flash_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
-      q, k, v, out, Sq, Sk, H, Hkv, D, Dv, scale, softcap, causal, window);
+      q, k, v, out, Sq, Sk, H, Hkv, D, Dv, scale, softcap, causal, window,
+      q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -433,7 +438,7 @@ __global__ void __launch_bounds__(kBf16Threads) flash_bf16_kernel(
     const __nv_bfloat16* __restrict__ v,  // (B, Sk, Hkv, Dv)
     __nv_bfloat16* __restrict__ out,      // (B, Sq, H, Dv)
     int Sq, int Sk, int H, int Hkv, int D, int Dv, float scale,
-    float softcap, int causal, int window, int vec) {
+    float softcap, int causal, int window, int q_offset, int vec) {
   constexpr int kBlockRows = kWarps * 16 * MT;
   const int G = H / Hkv;
   const int b = blockIdx.y / Hkv;
@@ -465,9 +470,9 @@ __global__ void __launch_bounds__(kBf16Threads) flash_bf16_kernel(
   __nv_bfloat16* v_s = k_s + kStages * kCols * qs;  // k: stages x (kCols, qs)
                                                     // v: stages x (kCols, vs)
 
-  // the kv tiles some row of this block can see
-  const int q_first = r0 / G;
-  const int q_last = min(Sq - 1, (r0 + kBlockRows - 1) / G);
+  // the kv tiles some row of this block can see (absolute positions)
+  const int q_first = r0 / G + q_offset;
+  const int q_last = min(Sq - 1, (r0 + kBlockRows - 1) / G) + q_offset;
   int t_lo = 0;
   int t_hi = (Sk + kCols - 1) / kCols - 1;
   if (causal) t_hi = min(t_hi, q_last / kCols);
@@ -477,13 +482,14 @@ __global__ void __launch_bounds__(kBf16Threads) flash_bf16_kernel(
   // this warp's rows, and the positions of this thread's rows: m-tile mt,
   // fragment row gid (i = 0) and gid + 8 (i = 1)
   const int wr0 = r0 + warp * 16 * MT;
-  const int w_first = wr0 / G;
-  const int w_last = min(Sq - 1, (wr0 + 16 * MT - 1) / G);
+  const int w_first = wr0 / G + q_offset;
+  const int w_last = min(Sq - 1, (wr0 + 16 * MT - 1) / G) + q_offset;
   int pos[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) pos[mt][i] = (wr0 + 16 * mt + gid + 8 * i) / G;
+    for (int i = 0; i < 2; ++i)
+      pos[mt][i] = (wr0 + 16 * mt + gid + 8 * i) / G + q_offset;
 
   const size_t kv_row = (size_t)Hkv;  // rows of k / v between two keys
   const __nv_bfloat16* k_bh = k + ((size_t)b * Sk * Hkv + h) * D;
@@ -735,8 +741,8 @@ template <int MT, int KD, int KV, bool EXACT>
 int launch_bf16_as(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, int B, int Sq,
                    int Sk, int H, int Hkv, int D, int Dv, float scale,
-                   float softcap, int causal, int window, int vec,
-                   cudaStream_t stream) {
+                   float softcap, int causal, int window, int q_offset,
+                   int vec, cudaStream_t stream) {
   constexpr int kBlockRows = kWarps * 16 * MT;
   // the most this instantiation can ask for, set once (a host call)
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -756,14 +762,15 @@ int launch_bf16_as(const __nv_bfloat16* q, const __nv_bfloat16* k,
   flash_bf16_kernel<MT, KD, KV, EXACT>
       <<<grid, kBf16Threads, smem, stream>>>(
       q, k, v, out, Sq, Sk, H, Hkv, D, Dv, scale, softcap, causal, window,
-      vec);
+      q_offset, vec);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                 const __nv_bfloat16* v, __nv_bfloat16* out, int B, int Sq,
                 int Sk, int H, int Hkv, int D, int Dv, float scale,
-                float softcap, int causal, int window, cudaStream_t stream) {
+                float softcap, int causal, int window, int q_offset,
+                cudaStream_t stream) {
   const int nkd = (D + 15) / 16;
   const int nvd = (Dv + 15) / 16;
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
@@ -772,7 +779,7 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 #define FLASH_BF16(MT, KD, KV, EXACT)                                      \
   return launch_bf16_as<MT, KD, KV, EXACT>(q, k, v, out, B, Sq, Sk, H, Hkv, \
                                            D, Dv, scale, softcap, causal,   \
-                                           window, vec, stream)
+                                           window, q_offset, vec, stream)
   // exact shapes of the configurations the repo runs: zamba2 (80), most
   // models (64, 128), MLA (192 / 128); two m-tiles a warp where the
   // registers allow it, so each K / V fragment read from shared memory
@@ -796,7 +803,7 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int H, int Hkv, int D, int Dv,
                                       float scale, float softcap, int causal,
-                                      int window, void* stream) {
+                                      int window, int q_offset, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -804,12 +811,12 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                       static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(out),
                       B, Sq, Sk, H, Hkv, D, Dv, scale, softcap, causal,
-                      window, s);
+                      window, q_offset, s);
   if (dtype == 1)
     return launch_bf16(static_cast<const __nv_bfloat16*>(q),
                        static_cast<const __nv_bfloat16*>(k),
                        static_cast<const __nv_bfloat16*>(v),
                        static_cast<__nv_bfloat16*>(out), B, Sq, Sk, H, Hkv,
-                       D, Dv, scale, softcap, causal, window, s);
+                       D, Dv, scale, softcap, causal, window, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -53,7 +53,7 @@ MAX_GRID_Y = 65535   # the grid's second dimension: B * Hkv
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 window: int = 0) -> None:
+                 window: int = 0, q_offset: int = 0) -> None:
     """Raise ``ValueError`` on what the kernel does not take."""
     check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
           "q, k, v must be (B, S, heads, dim)")
@@ -76,6 +76,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(0 < D <= MAX_D and 0 < Dv <= MAX_DV,
           f"kernel takes D <= {MAX_D} and Dv <= {MAX_DV}, got {D}/{Dv}")
     check(window >= 0, f"window must be >= 0, got {window}")
+    check(q_offset >= 0, f"q_offset must be >= 0, got {q_offset}")
     check(B * Hkv <= MAX_GRID_Y, f"B * Hkv = {B * Hkv} exceeds the grid")
 
 
@@ -88,15 +89,21 @@ def flash_attention(
     window: int = 0,
     softcap: float = 0.0,
     scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """``(B, Sq, H, Dv)`` in q's dtype.  Causal masking aligns q[0] with
-    k[0] (no offset), as in the TPU kernel.  No gradient: see
+    k[q_offset]: query row s sits at absolute position s + q_offset (a
+    context-parallel shard's slice of the sequence; 0, the TPU kernel's
+    only case, aligns q[0] with k[0]).  Every row must see a key (an
+    offset row past the keys' end under a window sees none: the kernel
+    writes zeros there, the plain version an average).  No gradient: see
     :class:`FlashAttention`."""
     build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        softcap=softcap, scale=scale)
-    check_inputs(q, k, v, window)
+                                        softcap=softcap, scale=scale,
+                                        q_offset=q_offset)
+    check_inputs(q, k, v, window, q_offset)
     B, Sq, H, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
@@ -104,10 +111,10 @@ def flash_attention(
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     err = build.entry("flash_attention",
-                      [i, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, p])(
+                      [i, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, i, p])(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, Sq, Sk, H, Hkv, D, Dv, float(scale),
-        float(softcap or 0.0), int(bool(causal)), int(window),
+        float(softcap or 0.0), int(bool(causal)), int(window), int(q_offset),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "flash_attention")
     count("flash_attention")
@@ -119,10 +126,10 @@ class FlashAttention(torch.autograd.Function):
     plain version's VJP backward (module docstring)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset=0):
         ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, softcap=softcap,
-                        scale=scale)
+                        scale=scale, q_offset=q_offset)
         return flash_attention(q, k, v, **ctx.args)
 
     @staticmethod
@@ -130,4 +137,4 @@ class FlashAttention(torch.autograd.Function):
         ins = [t.detach().requires_grad_(need)
                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         plain = lambda q, k, v: _ref.flash_attention_ref(q, k, v, **ctx.args)
-        return build.vjp("flash_attention", plain, ins, g) + (None,) * 4
+        return build.vjp("flash_attention", plain, ins, g) + (None,) * 5

@@ -67,12 +67,44 @@ def paged_scatter(k_pages, v_pages, index, k_vals, v_vals, *,
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    scale=None, impl: Optional[str] = None):
+                    scale=None, q_offset=0, impl: Optional[str] = None):
+    if q.device.type == "meta":
+        return _meta_flash(q, k, v, causal, window, q_offset)
     if resolve_impl(impl, q.device) == "cuda":
         return _fa.FlashAttention.apply(q, k, v, causal, window, softcap,
-                                        scale)
+                                        scale, q_offset)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, scale=scale)
+                                    softcap=softcap, scale=scale,
+                                    q_offset=q_offset)
+
+
+def flash_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                q_offset: int = 0) -> int:
+    """The (query, key) pairs flash attention scores unmasked: each row
+    s at position s + q_offset sees keys ``max(0, p - window + 1) ..
+    min(p, Sk - 1)`` when causal, all Sk keys (or the window's) when not."""
+    import numpy as np
+    p = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(p, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _meta_flash(q, k, v, causal, window, q_offset):
+    """Flash attention on the ``meta`` device (the dry-run): no values, the
+    output's shape, and the kernel's own work recorded with the dry-run's
+    counters: 2 (D + Dv) operations per unmasked (query, key, head), each
+    input read and the output written once.  Under autograd the backward
+    is recorded as the plain VJP's products, 2.5x the forward's."""
+    from repro_torch.roofline.op_stats import record_kernel
+    B, Sq, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[3]
+    flops = 2 * (D + Dv) * B * H * flash_pairs(Sq, Sk, causal, window,
+                                                 q_offset)
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) \
+        * q.element_size()
+    return record_kernel("flash_attention", (B, Sq, H, Dv), q.dtype, flops,
+                         nbytes, q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, window=0, softcap=0.0,
@@ -84,11 +116,30 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=0, softcap=0.0,
 
 def linear_scan(q, k, v, log_decay, *, state=None, bonus=None, chunk=128,
                 impl: Optional[str] = None):
+    if q.device.type == "meta":
+        return _meta_scan(q, k, v, chunk)
     if resolve_impl(impl, q.device) == "cuda":
         check(state is None, _ls.ZERO_STATE_ONLY)
         return _ls.LinearScan.apply(q, k, v, log_decay, bonus, chunk, 75.0)
     return _ref.linear_scan_ref(q, k, v, log_decay, state=state, bonus=bonus,
                                 chunk=chunk)
+
+
+def _meta_scan(q, k, v, chunk):
+    """The scan on the ``meta`` device (the dry-run): the output (B, S, H,
+    V) and final state (B, H, K, V) f32, and the chunked algorithm's work:
+    per chunk of L keys the intra-chunk products 2 L^2 (K + V) and the
+    state's 4 L K V a head, the inputs read and the outputs written once."""
+    from repro_torch.roofline.op_stats import record_kernel
+    B, S, H, K = q.shape
+    Vd = v.shape[3]
+    L = min(chunk, S)
+    flops = B * H * S * (2 * L * (K + Vd) + 4 * K * Vd)
+    nbytes = (3 * B * S * H * K + 2 * B * S * H * Vd) * q.element_size() \
+        + 4 * B * S * H * K + 4 * B * H * K * Vd
+    y = record_kernel("linear_scan", (B, S, H, Vd), q.dtype, flops, nbytes,
+                      q, k, v)
+    return y, torch.zeros((B, H, K, Vd), dtype=torch.float32, device="meta")
 
 
 def linear_scan_step(q, k, v, log_decay, state, bonus=None):

@@ -1,0 +1,226 @@
+"""Multi-pod dry-run: run every (arch x shape x mesh) cell's step on the
+production mesh with no devices and no data, and record its memory, FLOPs,
+bytes and collectives per rank for the roofline.
+
+Each cell runs in this process as rank 0 of a ``fake`` process group of
+256 ranks (512 with ``--multi-pod``): parameters, optimizer state and
+inputs are ``meta`` DTensors laid out by ``parallel/sharding.py``'s
+``spec_for``, and the step -- train (loss, backward, AdamW), prefill or
+decode -- runs under ``roofline/op_stats.py``'s counter, which sees the
+local ops and collectives DTensor turns the step into.  The kernels count
+their own work on ``meta`` (``kernels/ops.py``).  The roofline's peaks are
+the H100's data-sheet figures (``roofline/analysis.py``): bounds, not
+measurements.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2_27b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --out results/dryrun_torch
+
+A CPU process group makes DTensor fall back from all-to-all to all-gather
+plus a local chunk; the dry-run models a mesh of GPUs, whose process group
+does all-to-all, so it keeps DTensor's all-to-all (``_alltoall_kept``) and
+counts it as one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import time
+import traceback
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import SHAPES
+from repro_torch.configs.registry import (ARCHS, cell_supported, get_config,
+                                          input_specs)
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.model import (abstract_params, cache_axes,
+                                      params_logical_axes)
+from repro_torch.optim.adamw import adamw_init, tree_leaves
+from repro_torch.parallel import sharding as sh
+from repro_torch.roofline import analysis as roof
+from repro_torch.roofline.op_stats import OpStats
+from repro_torch.train.train_step import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """This process as rank 0 of a ``fake`` process group of ``n`` ranks
+    (no other process, no communication)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _alltoall_kept():
+    """DTensor's shard-dim all-to-all as the op itself, never the CPU
+    process group's all-gather + chunk fallback (module docstring)."""
+    from torch.distributed.tensor import _collective_utils as cu
+    from torch.distributed.tensor import placement_types as pt
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        group = cu.funcol._resolve_group((mesh, mesh_dim))
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim,
+            cu.funcol._group_or_group_name(group))
+
+    was = pt.shard_dim_alltoall
+    pt.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        pt.shard_dim_alltoall = was
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.to_local().nbytes if sh.is_dtensor(t) else t.nbytes
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def _tree(x):
+    """A step's output as a tree of dicts (tuples and NamedTuples too)."""
+    if isinstance(x, dict):
+        return {k: _tree(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return {str(i): _tree(v) for i, v in enumerate(x)}
+    return x
+
+
+def run_step(cfg, shape, mesh):
+    """One cell's step on ``mesh`` under :class:`OpStats`; returns
+    (stats, argument bytes, output bytes, alias bytes)."""
+    p_dt = sh.tree_distribute(mesh, abstract_params(cfg),
+                              params_logical_axes(cfg))
+    specs = input_specs(cfg, shape)
+    batch = {}
+    for name in ("tokens", "targets", "frontend"):
+        if name in specs:
+            batch[name] = sh.distribute(
+                specs[name], mesh, sh.spec_for(
+                    mesh, ("batch",) + (None,) * (specs[name].dim() - 1),
+                    tuple(specs[name].shape)))
+    args = {"params": p_dt, "batch": batch}
+    st = OpStats()
+    if shape.kind == "train":
+        opt = adamw_init(p_dt)
+        args["opt"] = opt
+        arg_bytes = _local_bytes(args)
+        with st:
+            p_dt, opt, metrics = make_train_step(cfg)(p_dt, opt, batch)
+        alias = _local_bytes(p_dt) + _local_bytes(_tree(opt))
+        out_bytes = alias + _local_bytes(metrics)
+    elif shape.kind == "prefill":
+        arg_bytes = _local_bytes(args)
+        with st:
+            out = make_prefill_step(cfg)(p_dt, batch["tokens"],
+                                         batch.get("frontend"))
+        out_bytes, alias = _local_bytes(_tree(out)), 0
+    else:
+        cache = sh.tree_distribute(mesh, specs["cache"], cache_axes(cfg))
+        args["cache"] = cache
+        arg_bytes = _local_bytes(args)
+        with st:
+            tok, cache = make_serve_step(cfg)(p_dt, cache, batch["tokens"])
+        alias = _local_bytes(cache)
+        out_bytes = alias + _local_bytes(tok)
+    return st, arg_bytes, out_bytes, alias
+
+
+def _write(meta, out_dir, arch, shape_name, multi_pod):
+    if not out_dir:
+        return
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    name = f"{arch}_{shape_name}{'_mp' if multi_pod else ''}.json"
+    (out / name).write_text(json.dumps(meta, indent=1, default=str))
+
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+             out_dir=None, remat=None):
+    t0 = time.time()
+    mesh_name = "multi" if multi_pod else "single"
+    cfg = get_config(arch)
+    if remat:
+        cfg = cfg.scaled(remat=remat)
+    shape = SHAPES[shape_name]
+    skip = cell_supported(cfg, shape)
+    if skip:
+        meta = {"skip": skip, "status": "skipped", "arch": arch,
+                "shape": shape_name, "multi_pod": multi_pod}
+        print(f"[dryrun] {arch} x {shape_name} ({mesh_name}): SKIP ({skip})",
+              flush=True)
+        _write(meta, out_dir, arch, shape_name, multi_pod)
+        return meta
+    n_dev = 512 if multi_pod else 256
+    meta = {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+            "n_devices": n_dev}
+    try:
+        with fake_world(n_dev), _alltoall_kept():
+            mesh = make_production_mesh(multi_pod=multi_pod,
+                                        device_type="cpu")
+            sh.set_mesh(mesh)
+            try:
+                st, arg_b, out_b, alias_b = run_step(cfg, shape, mesh)
+            finally:
+                sh.set_mesh(None)
+        meta["model_flops"] = roof.analytic_model_flops(cfg, shape, n_dev)
+        rl = roof.Roofline(flops=st.flops, hbm_bytes=st.hbm_bytes,
+                           coll=st.coll, model_flops=meta["model_flops"],
+                           hbm_bytes_raw=st.hbm_bytes_raw)
+        mem = {"argument_bytes": arg_b, "output_bytes": out_b,
+               "temp_bytes": st.peak_bytes, "code_bytes": 0,
+               "alias_bytes": alias_b}
+        total = sum(v for v in mem.values() if v) - alias_b
+        mem["per_device_total_gib"] = round(total / 2**30, 3)
+        meta.update({"status": "ok", "step_s": round(time.time() - t0, 1),
+                     "memory": mem, "roofline": rl.as_dict(),
+                     "kernels": st.kernels, "ops": st.n_ops})
+        print(f"[dryrun] {arch} x {shape_name} ({mesh_name}): OK "
+              f"trace={time.time() - t0:.0f}s mem={total / 2**30:.2f}GiB "
+              f"bottleneck={rl.bottleneck} "
+              f"t_step>={rl.step_time_s * 1e3:.1f}ms "
+              f"useful={rl.useful_flops_fraction:.2f}", flush=True)
+    except Exception as e:  # noqa: BLE001 -- record failures as results
+        meta.update({"status": "error", "error": f"{type(e).__name__}: {e}",
+                     "trace": traceback.format_exc()[-2000:]})
+        print(f"[dryrun] {arch} x {shape_name}: ERROR {e}", flush=True)
+    meta["wall_s"] = round(time.time() - t0, 1)
+    _write(meta, out_dir, arch, shape_name, multi_pod)
+    return meta
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--remat", default=None)
+    ap.add_argument("--out", default="results/dryrun_torch")
+    args = ap.parse_args(argv)
+
+    archs = ARCHS if (args.all or args.arch in (None, "all")) else [args.arch]
+    shapes = list(SHAPES) if (args.all or args.shape in (None, "all")) \
+        else [args.shape]
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    results = [run_cell(a, s, multi_pod=mp, out_dir=args.out,
+                        remat=args.remat)
+               for a in archs for s in shapes for mp in meshes]
+    ok = sum(r.get("status") == "ok" for r in results)
+    skip = sum(r.get("status") == "skipped" for r in results)
+    err = sum(r.get("status") == "error" for r in results)
+    print(f"[dryrun] done: {ok} ok, {skip} skipped, {err} errors", flush=True)
+    return 1 if err else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -18,8 +18,10 @@ Cache layouts (all batch-major, stacked over layer repeats by the caller):
   cross:      {"k": (B,T,Hkv,D), "v": (B,T,Hkv,Dv)}           (precomputed)
 
 Decode writes the new token INTO the stacked cache tensors, in place; the
-reference returns new arrays instead.  (The reference's context-parallel
-branch of ``_flash`` comes with the sharding slice.)
+reference returns new arrays instead.  Under a mesh (``parallel/
+sharding.py``) the flash kernel runs per rank on local shards, heads over
+``model`` or, where the heads do not divide it, the query sequence
+(context parallelism): :func:`_flash`.
 """
 
 from __future__ import annotations
@@ -28,18 +30,88 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import Spec, apply_rope, rms_norm
+from repro_torch.parallel import sharding as shlib
+
+def _tp_size(mesh) -> int:
+    return (shlib.axis_size(mesh, "model")
+            if mesh is not None and "model" in shlib.axis_names(mesh) else 1)
+
 
 def _flash(q, k, v, *, causal, window, softcap_v, scale, impl=None):
-    """Full-sequence attention on one device.  (The reference's
-    context-parallel branch for head counts that do not divide the model
-    axis comes with the sharding slice.)"""
-    return kops.flash_attention(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=causal, window=window,
-                                softcap=softcap_v, scale=scale, impl=impl)
+    """Full-sequence attention through the flash kernel.
+
+    Under a mesh (DTensor q, k, v) every rank runs the kernel on its local
+    shards, through ``local_map``: a kernel never sees a DTensor.  Batch
+    goes over the FSDP axes and heads over ``model`` when the head counts
+    divide it.  When they do not (starcoder2: 36H, whisper: 12H) the heads
+    stay replicated, and each ``model`` rank takes a slice of the QUERY
+    sequence instead (context parallelism, the reference's ``shard_map``
+    branch): q padded to a multiple of tp, K and V replicated over
+    ``model`` (no extra communication), the causal mask offset by the
+    shard's position (the kernel's ``q_offset``), the pad cut after."""
+    mesh = shlib.get_mesh()
+    kw = dict(causal=causal, window=window, softcap=softcap_v, scale=scale,
+              impl=impl)
+    if mesh is None or not shlib.is_dtensor(q):
+        return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), **kw)
+    tp = _tp_size(mesh)
+    H, Hkv = q.shape[2], k.shape[2]
+
+    pl = lambda dims, t: shlib.layout(mesh, dims, t)
+
+    def kernel(qs, ks, vs, q_offset=0):
+        return kops.flash_attention(qs.contiguous(), ks.contiguous(),
+                                    vs.contiguous(), q_offset=q_offset, **kw)
+
+    if tp == 1 or (H % tp == 0 and Hkv % tp == 0):
+        qpl = pl(("batch", None, "heads", None), q)
+        return shlib.local_map(kernel, qpl, (qpl, pl(("batch", None, "kv_heads",
+                                                 None), k),
+                                        pl(("batch", None, "kv_heads", None),
+                                           v)))(q, k, v)
+
+    B, S = q.shape[0], q.shape[1]
+    pad = (-S) % tp
+    Sp = S + pad
+    s_local = Sp // tp
+    bspec = shlib.spec_for(mesh, ("batch",), (B,))
+    b = bspec[0] if bspec else None
+    rep = list(shlib.placements(mesh, (b,)))
+    cp = list(shlib.placements(mesh, (b, "model")))
+    if pad:
+        q = shlib.local_map(lambda qs: F.pad(qs, (0, 0, 0, 0, 0, pad)), rep,
+                       (rep,))(q)
+
+    def body(qs, ks, vs):
+        return kernel(qs, ks, vs,
+                      q_offset=mesh.get_local_rank("model") * s_local)
+
+    kv_grad = shlib.partial_over(rep, cp)     # each shard's own queries
+    out = shlib.local_map(body, cp, (cp, rep, rep),
+                          (cp, kv_grad, kv_grad))(q, k, v)
+    # the sequence whole again for the output projection (heads are not
+    # sharded here): one all-gather over model
+    out = out.redistribute(mesh, rep)
+    return out[:, :S] if pad else out
+
+
+def _decode(q, k, v, kv_len, **kw):
+    """Decode attention of one query token over a KV cache.  Under a mesh
+    whose ``model`` axis divides the heads but not the kv heads, the
+    cache's ``kv_seq`` holds ``model`` and the query's heads cannot be
+    grouped over the kv heads shard by shard: the query (one token) is
+    read whole over ``model``, as it is where the heads do not divide, and
+    the cache stays sharded over its sequence."""
+    tp = _tp_size(shlib.get_mesh())
+    if tp > 1 and shlib.is_dtensor(q) and k.shape[2] % tp:
+        q = shlib.constrain(q, ("batch", None, None, None))
+    return kops.decode_attention(q, k, v, kv_len, **kw)
 
 
 def _cache_read(arr, idx):
@@ -53,8 +125,41 @@ def _cache_write_token(arr, idx, pos, val):
     as the reference's uniform-position update does (ragged positions are
     the paged path's job).  The position stays on the device: no host
     sync per layer.  Returns ``arr``."""
+    if shlib.is_dtensor(arr):
+        return _cache_write_local(arr, idx, pos, val)
     dst = arr if idx is None else arr[idx]
     dst.index_copy_(1, pos[:1].long(), val.to(arr.dtype)[:, None])
+    return arr
+
+
+def _cache_write_local(arr, idx, pos, val):
+    """:func:`_cache_write_token` into a DTensor cache, shard by shard.
+    DTensor's own ``index_copy_`` into a shard of the sequence (the cache
+    when the kv heads do not divide ``model``) writes a copy and drops
+    it.  Here ``val`` is laid out as a cache row (the sequence dim left
+    out) and each rank writes into its own shard; of the shards of the
+    sequence only the one holding ``pos`` takes the token (a select on
+    the device, no host sync)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, sd = arr.device_mesh, 1 if idx is None else 2
+    vpl, chunk = [], 0
+    for m, p in enumerate(arr.placements):
+        if isinstance(p, Shard) and p.dim == sd:
+            chunk = chunk * mesh.size(m) + mesh.get_local_rank(m)
+            vpl.append(Replicate())
+        elif isinstance(p, Shard):
+            if p.dim < sd - 1:
+                raise ValueError(f"cache sharded over its layers: {p}")
+            vpl.append(Shard(p.dim - (sd - 1) - (p.dim > sd)))
+        else:
+            vpl.append(p)
+    a = arr.to_local()
+    dst = a if idx is None else a[idx]
+    v = val.redistribute(mesh, vpl).to_local().to(a.dtype)[:, None]
+    at = pos.to_local()[:1].long() - chunk * dst.shape[1]
+    here = (at >= 0) & (at < dst.shape[1])
+    at = at.clamp(0, dst.shape[1] - 1)
+    dst.index_copy_(1, at, torch.where(here, v, dst.index_select(1, at)))
     return arr
 
 
@@ -140,8 +245,8 @@ def apply_attn(
                 q = rms_norm(q, p["q_scale"], cfg.norm_eps)
             kv_len = torch.full((B,), k.shape[1], dtype=torch.int32,
                                 device=x.device)
-            out = kops.decode_attention(q, k, v, kv_len,
-                                        softcap=cfg.attn_softcap, scale=scale)
+            out = _decode(q, k, v, kv_len, softcap=cfg.attn_softcap,
+                          scale=scale)
             new_cache = cache
         else:
             T = kv_source.shape[1]
@@ -168,7 +273,7 @@ def apply_attn(
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
         k_full = _cache_write_token(cache["k"], layer_idx, pos, k[:, 0])
         v_full = _cache_write_token(cache["v"], layer_idx, pos, v[:, 0])
-        out = kops.decode_attention(
+        out = _decode(
             q, _cache_read(k_full, layer_idx), _cache_read(v_full, layer_idx),
             pos + 1, window=window, softcap=cfg.attn_softcap, scale=scale)
         new_cache = {"k": k_full, "v": v_full}

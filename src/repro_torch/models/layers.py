@@ -69,6 +69,21 @@ def materialize(tree, generator: torch.Generator, device):
     return {k: materialize(v, generator, device) for k, v in sorted(tree.items())}
 
 
+def abstract(tree):
+    """Spec tree -> tree of ``meta`` tensors (the dry-run: no allocation)."""
+    if isinstance(tree, Spec):
+        return torch.empty(tree.shape, dtype=torch_dtype(tree.dtype),
+                           device="meta")
+    return {k: abstract(v) for k, v in tree.items()}
+
+
+def axes_tree(tree):
+    """Spec tree -> logical-axes tree."""
+    if isinstance(tree, Spec):
+        return tree.axes
+    return {k: axes_tree(v) for k, v in tree.items()}
+
+
 def stack_specs(tree, repeats: int):
     """Add a leading stacked-layer dimension to every Spec in the tree."""
     if isinstance(tree, Spec):
@@ -137,6 +152,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                pct: float = 1.0) -> torch.Tensor:
     """x: (..., H, D); positions: x.shape[:-2]. Partial rotary via pct."""
     return rotate(x, rope_tables(positions, x.shape[-1], theta, pct, x.dtype))
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table.  Under a mesh (DTensor
+    table and tokens) the table is gathered whole and each rank looks up
+    its own tokens: the sharding propagation's masked lookup over a
+    vocab-sharded table does not take batch-sharded indices."""
+    from repro_torch.parallel.sharding import (is_dtensor, local_map,
+                                               partial_over, replicated_like)
+    if not is_dtensor(table):
+        return F.embedding(tokens.long(), table)
+    from torch.distributed.tensor import Replicate
+    rep = [Replicate()] * table.device_mesh.ndim
+    tok = tokens if is_dtensor(tokens) else replicated_like(tokens, table)
+    where = list(tok.placements)
+    return local_map(lambda t, w: F.embedding(t.long(), w),
+                     where, (where, rep),
+                     (where, partial_over(rep, where)))(tok, table)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,13 @@ repeats, ``shared_attn/{norm, attn}``, ``encoder/{groups, final_norm,
 pos_embed}``, ``mtp/{norm_h, norm_e, proj, layer}``) so weights bridge
 1:1.  :func:`check_paged_support` says which configs the paged serving
 path (``serve/paged_model.py``) takes.
+
+Under a mesh (``parallel/sharding.py``: DTensor parameters laid out by
+:func:`params_logical_axes`) each repeat gathers its weights over the FSDP
+axes at use (``unshard``; under remat again in the backward), the residual
+stream and the logits are pinned to their layouts where the reference
+constrains them, and the kernels run on each rank's local shards
+(``models/attention.py``, ``models/ssm.py``, ``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -51,11 +58,13 @@ from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.ssm import (_st_write, apply_mamba2, apply_rwkv6,
                                     mamba2_dims, mamba2_specs, rwkv6_dims,
                                     rwkv6_specs)
+from repro_torch.parallel.sharding import constrain, under_mesh, unshard
 
 Spec = L.Spec
 
-__all__ = ["apply_model", "build_specs", "cache_shapes", "check_paged_support",
-           "encode", "init_cache", "init_params"]
+__all__ = ["abstract_params", "apply_model", "build_specs", "cache_axes",
+           "cache_shapes", "check_paged_support", "encode", "init_cache",
+           "init_params", "params_logical_axes"]
 
 
 def check_paged_support(cfg: ArchConfig) -> None:
@@ -169,6 +178,16 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return L.materialize(build_specs(cfg), generator, device)
 
 
+def abstract_params(cfg: ArchConfig):
+    """The parameter tree as ``meta`` tensors (no allocation)."""
+    return L.abstract(build_specs(cfg))
+
+
+def params_logical_axes(cfg: ArchConfig):
+    """The parameter tree's logical axes (``parallel/sharding.py``)."""
+    return L.axes_tree(build_specs(cfg))
+
+
 # ============================================================================
 # caches
 # ============================================================================
@@ -200,6 +219,39 @@ def _layer_cache_spec(cfg: ArchConfig, spec: LayerSpec, batch: int,
         out["shared_k"] = (batch, seq, Hkv, hd)
         out["shared_v"] = (batch, seq, Hkv, hd)
     return out
+
+
+# each cache leaf's logical axes (``parallel/sharding.py``), per layer
+_CACHE_AXES = {
+    "ckv": ("batch", "kv_seq", None), "k_rope": ("batch", "kv_seq", None),
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "conv": ("batch", None, "mlp_state"), "ssm": ("batch", "heads", None, None),
+    "state": ("batch", "heads", None, None), "tm_shift": ("batch", None),
+    "cm_shift": ("batch", None),
+    "shared_k": ("batch", "kv_seq", "kv_heads", None),
+    "shared_v": ("batch", "kv_seq", "kv_heads", None),
+}
+# cross attention caches the frontend's T tokens: no kv_seq axis
+_CROSS_AXES = ("batch", None, "kv_heads", None)
+
+
+def cache_axes(cfg: ArchConfig):
+    """The logical axes of :func:`cache_shapes`' tree (the reference's
+    second return value of its ``cache_shapes``), stacked over each
+    group's repeats."""
+    groups: Dict[str, Any] = {}
+    for gi, g in enumerate(cfg.groups):
+        pat = {}
+        for pi, ls in enumerate(g.pattern):
+            names = _layer_cache_spec(cfg, ls, 1, 1)
+            cross = ls.mixer == "attn" and ls.attn_kind == "cross"
+            if names:
+                pat[f"p{pi}"] = {
+                    n: ("layers",) + (_CROSS_AXES if cross and n in ("k", "v")
+                                      else _CACHE_AXES[n]) for n in names}
+        groups[f"g{gi}"] = pat
+    return {"pos": ("batch",), "groups": groups}
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, seq: int, dtype="bfloat16"):
@@ -288,6 +340,16 @@ def unstack(gp) -> List[Any]:
     return [dict(zip(per, rep)) for rep in zip(*per.values())]
 
 
+def _residual(x, o):
+    """``x + o``, and under a mesh the sum pinned to the residual stream's
+    layout (batch over the FSDP axes, whole over ``model``): a sublayer's
+    row-parallel output is summed over ``model`` here, once, so the next
+    sublayer's products run column-parallel on each rank's own weights
+    (left alone, the sharding propagation defers the sum and gathers whole
+    weights instead, redoing each product on every ``model`` rank)."""
+    return constrain(x + o, ("batch", None, None))
+
+
 def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
                  kv_source, shared_params, layer_idx=None, impl=None):
     """One pattern-position layer.  Returns (x, new_lcache, aux), the MoE
@@ -302,7 +364,7 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
                           layer_idx=layer_idx, impl=impl)
         if cfg.post_norms:
             o = L.rms_norm(o, lp["post_norm1"], cfg.norm_eps)
-        x = x + o
+        x = _residual(x, o)
         if c:
             new_cache.update(c)
     elif spec.mixer == "mamba2":
@@ -310,7 +372,7 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
         o, c = apply_mamba2(lp["mamba"], h, cfg=cfg, mode=mode,
                             cache=lcache if lcache else None,
                             layer_idx=layer_idx, impl=impl)
-        x = x + o
+        x = _residual(x, o)
         if c:
             new_cache.update(c)
     elif spec.mixer == "rwkv6":
@@ -318,10 +380,10 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
         tm_out, cm_fn, c = apply_rwkv6(lp["rwkv"], h, cfg=cfg, mode=mode,
                                        cache=lcache if lcache else None,
                                        layer_idx=layer_idx, impl=impl)
-        x = x + tm_out
+        x = _residual(x, tm_out)
         hc = L.rms_norm(x, lp["norm_cm"], cfg.norm_eps)
         cm_out, cm_shift = cm_fn(hc)
-        x = x + cm_out
+        x = _residual(x, cm_out)
         if c is not None:
             new_cache.update(c)
             if mode == "decode":
@@ -338,7 +400,7 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
         o, c = apply_attn(shared_params["attn"], h, cfg=cfg, kind="full",
                           mode=mode, cache=scache, pos=pos,
                           layer_idx=layer_idx, impl=impl)
-        x = x + o
+        x = _residual(x, o)
         if c:
             new_cache["shared_k"] = c["k"]
             new_cache["shared_v"] = c["v"]
@@ -348,12 +410,12 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
         o = L.mlp_apply(lp["mlp"], h, cfg.act)
         if cfg.post_norms:
             o = L.rms_norm(o, lp["post_norm2"], cfg.norm_eps)
-        x = x + o
+        x = _residual(x, o)
     elif spec.mlp == "moe":
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
         o, a = apply_moe(lp["moe"], h, cfg=cfg)
         aux = {k: aux[k] + a[k] for k in aux}
-        x = x + o
+        x = _residual(x, o)
 
     return x, new_cache, aux
 
@@ -370,6 +432,8 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
         # g, gc and produced bound now: under remat the backward's
         # recompute calls this after the loop has moved on
         def repeat(x, aux, lp, rep, g=g, gc=gc, produced=produced):
+            x = constrain(x, ("batch", None, None))
+            lp, shared = unshard(lp), unshard(shared_params)
             for pi, ls in enumerate(g.pattern):
                 key = f"p{pi}"
                 # decode writes the STACKED cache at [layer, ...] in place
@@ -377,7 +441,7 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
                 x, nc, aux = _apply_layer(
                     lp[key], ls, x, aux, cfg=cfg, mode=mode,
                     lcache=gc.get(key) if decode else None, pos=pos,
-                    kv_source=kv_source, shared_params=shared_params,
+                    kv_source=kv_source, shared_params=shared,
                     layer_idx=rep if decode else None, impl=impl)
                 if mode == "prefill" and nc:
                     per = produced.setdefault(key, {})
@@ -407,14 +471,15 @@ def encode(params: Dict[str, Any], frontend: torch.Tensor, *,
     ``encoder/final_norm``: the cross layers' ``kv_source``."""
     dt = L.torch_dtype(cfg.dtype)
     enc = params["encoder"]
-    pe = enc["pos_embed"]
+    pe = unshard(enc["pos_embed"])
     h = frontend.to(pe.device, dt) + pe[None].to(dt)
     h, _, _ = _run_groups(enc["groups"], cfg.encoder_groups, h, cfg=cfg,
                           mode="train", cache=None, pos=None, kv_source=None,
                           shared_params=None, impl=impl)
-    return L.rms_norm(h, enc["final_norm"], cfg.norm_eps)
+    return L.rms_norm(h, unshard(enc["final_norm"]), cfg.norm_eps)
 
 
+@under_mesh
 def apply_model(
     params: Dict[str, Any],
     tokens: torch.Tensor,                   # (B, S) integer
@@ -433,9 +498,10 @@ def apply_model(
     dt = L.torch_dtype(cfg.dtype)
     dev = params["embed"].device
     tokens = tokens.to(dev)
-    x = params["embed"][tokens.long()].to(dt)
+    x = L.embed_lookup(params["embed"], tokens).to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    x = constrain(x, ("batch", None, None))
 
     pos = cache["pos"] if (cache is not None and mode == "decode") else None
 
@@ -451,7 +517,7 @@ def apply_model(
                                shared_params=params.get("shared_attn"),
                                impl=impl)
 
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, unshard(params["final_norm"]), cfg.norm_eps)
     if cfg.mtp and mode == "train":
         aux["mtp_hidden"] = x     # the MTP head's input, for the loss
     if mode == "prefill":
@@ -461,11 +527,12 @@ def apply_model(
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = x @ head.to(dt)
+    logits = x @ unshard(head).to(dt)
     logits = L.softcap(logits, cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=dev) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
+    logits = constrain(logits, ("batch", None, "vocab"))
 
     out_cache = None
     if mode == "decode":

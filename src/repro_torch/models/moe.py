@@ -24,8 +24,15 @@ slots that kept it and adds them in ascending expert order -- the order in
 which the reference's flattened (E, C) updates reach the token -- so the
 result is the same bits from run to run on the card, with no atomics.
 
-The expert-parallel branch (``_moe_local``/``apply_moe_ep``, which runs only
-under a device mesh) is not ported: it comes with the distribution slice.
+Under a mesh whose ``model`` axis divides the experts and the sequence,
+:func:`apply_moe_ep` runs expert parallelism, as the reference's
+``shard_map`` branch does: each ``model`` rank routes its own sequence
+slice (capacity over its local tokens), sends the capacity-selected
+tokens to the experts' owners with one all-to-all over ``model``, runs its
+E/tp local experts, and all-to-alls the outputs home; the aux losses are
+averaged over every shard.  Under any other mesh the dense dispatch runs
+on the whole batch on every rank (the reference's routing over all
+tokens), and its output is pinned back to the batch layout.
 """
 
 from __future__ import annotations
@@ -37,8 +44,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Spec, mlp_apply, mlp_specs
+from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+from repro_torch.parallel import sharding as shlib
 
-__all__ = ["apply_moe", "capacity", "moe_specs", "route"]
+__all__ = ["apply_moe", "apply_moe_ep", "capacity", "moe_specs", "route"]
 
 
 def moe_specs(cfg: ArchConfig) -> Dict[str, Spec]:
@@ -98,6 +107,147 @@ def route(p: Dict[str, torch.Tensor], xt: torch.Tensor, cfg: ArchConfig):
     return top_i, cw, ci, aux
 
 
+def _expert_ffn(p, xe: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The experts' gated FFN on their slots ``xe`` (E, C, D)."""
+    f = L.activation("silu" if cfg.act == "silu" else "gelu")
+    w = {k: p[k].to(xe.dtype) for k in ("wi_gate", "wi_up", "wo")}
+    h = f(torch.bmm(xe, w["wi_gate"])) * torch.bmm(xe, w["wi_up"])
+    return torch.bmm(h, w["wo"])                           # (E, C, D)
+
+
+def _combine(ye: torch.Tensor, cw, ci, top_i, T: int, dtype) -> torch.Tensor:
+    """Each token's expert outputs (rows of ``ye`` (E, C, D), weighted by
+    ``cw``), added in ascending expert order: the reference's scatter-add
+    in a fixed order.  Returns (T, D) in ``dtype``."""
+    E, C = ci.shape
+    D = ye.shape[-1]
+    ye = ye * cw.to(ye.dtype)[..., None]                   # 0 where untaken
+    ye = ye.to(dtype).reshape(E * C, D)
+    dev = ye.device
+    # slot[e, t] is the row of ye that expert e kept token t in (-1 if
+    # none; untaken slots land in a spare column T, no host sync); a
+    # token's experts in ascending order, their outputs added in turn
+    col = torch.where(cw > 0.0, ci, T)
+    rows = torch.arange(E * C, device=dev).reshape(E, C)
+    slot = torch.full((E, T + 1), -1, dtype=torch.long, device=dev)
+    slot = slot.scatter_(1, col, rows)[:, :T]
+    experts = torch.sort(top_i, dim=-1).values              # (T, k)
+    tok = torch.arange(T, device=dev)
+    out = torch.zeros((T, D), dtype=dtype, device=dev)
+    for j in range(top_i.shape[1]):
+        sj = slot[experts[:, j], tok]                       # (T,)
+        kept = (sj >= 0)[:, None]
+        out = out + torch.where(kept, ye[sj.clamp_min(0)], 0)
+    return out
+
+
+def _moe_dense(p, x: torch.Tensor, cfg: ArchConfig):
+    """Dense dispatch on one device's tokens."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    top_i, cw, ci, aux = route(p, xt, cfg)
+    E, C = ci.shape
+    xe = xt[ci.reshape(-1)].reshape(E, C, D)
+    ye = _expert_ffn(p, xe, cfg)
+    out = _combine(ye, cw, ci, top_i, T, x.dtype).reshape(B, S, D)
+    if m.n_shared:
+        out = out + mlp_apply(p["shared"], x, cfg.act)
+    return out, aux
+
+
+class _AllToAll(torch.autograd.Function):
+    """``jax.lax.all_to_all(x, split_axis, concat_axis, tiled=True)`` over
+    a process group: x cut into n pieces along ``split``, piece j to rank
+    j, the pieces received concatenated along ``concat`` in rank order.
+    Its gradient is the exchange back."""
+
+    @staticmethod
+    def forward(ctx, x, split, concat, group):
+        ctx.args = (split, concat, group)
+        return _all_to_all(x, split, concat, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, concat, group = ctx.args
+        return _all_to_all(g.contiguous(), concat, split, group), None, \
+            None, None
+
+
+def _all_to_all(x, split: int, concat: int, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    n = group.size()
+    send = torch.stack(x.chunk(n, dim=split)).contiguous()
+    got = funcol.all_to_all_single(send, None, None, group)
+    got = funcol.wait_tensor(got)
+    return torch.cat(got.unbind(0), dim=concat)
+
+
+class _Mean(torch.autograd.Function):
+    """The mean of a scalar over a process group (``jax.lax.pmean``); its
+    gradient is the replicated upstream gradient over the group's size."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+        ctx.n = group.size()
+        return funcol.wait_tensor(funcol.all_reduce(x, "avg", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def apply_moe_ep(p, x, *, cfg: ArchConfig, mesh):
+    """Explicit expert parallelism (the reference's ``shard_map`` branch):
+    each ``model`` rank routes a sequence slice of its local batch,
+    exchanges the capacity-selected tokens with an all-to-all over
+    ``model``, runs its local experts, and all-to-alls the outputs home --
+    no full-activation all-reduce."""
+    m = cfg.moe
+    D = x.shape[-1]
+    fsdp = shlib.fsdp_axes(mesh)
+    bspec = fsdp[0] if len(fsdp) == 1 else (fsdp or None)
+    xpl = list(shlib.placements(mesh, (bspec, "model")))
+    rep = list(shlib.placements(mesh, ()))
+    epl = list(shlib.placements(mesh, ("model",)))
+    model_group = mesh.get_group("model")
+    groups = [mesh.get_group(a) for a in ("model",) + fsdp]
+    shared = p.get("shared")
+    names = sorted(shared) if shared else []
+
+    def block(xb, router, wig, wiu, wo, *sh):
+        Bl, Sl, _ = xb.shape
+        T = Bl * Sl
+        xt = xb.reshape(T, D)
+        top_i, cw, ci, aux = route({"router": router}, xt, cfg)
+        E, C = ci.shape
+        xe = xt[ci.reshape(-1)].reshape(E, C, D)
+        # dispatch: (E, C, D) -> (E/tp, C*tp, D) rows of local experts
+        xr = _AllToAll.apply(xe, 0, 1, model_group)
+        yr = _expert_ffn({"wi_gate": wig, "wi_up": wiu, "wo": wo}, xr, cfg)
+        # combine: route outputs back to the token-owner shard
+        ye = _AllToAll.apply(yr, 1, 0, model_group)        # (E, C, D)
+        out = _combine(ye, cw, ci, top_i, T, xb.dtype).reshape(Bl, Sl, D)
+        if m.n_shared:
+            out = out + mlp_apply(dict(zip(names, sh)), xb, cfg.act)
+        # average aux over all shards so the loss is mesh-independent
+        for g in groups:
+            aux = {k: _Mean.apply(v, g) for k, v in aux.items()}
+        return out, aux["moe_aux"], aux["moe_z"]
+
+    ins = (xpl, rep, epl, epl, epl) + (rep,) * len(names)
+    # weights meet each shard's own tokens: their grads sum over the shards
+    grads = (xpl,) + tuple(shlib.partial_over(p, xpl) for p in ins[1:])
+    out, a, z = shlib.local_map(block, (xpl, rep, rep), ins, grads)(
+        x, p["router"].float(), p["wi_gate"], p["wi_up"], p["wo"],
+        *(shared[k] for k in names))
+    # the sequence whole again over model (the residual stream's layout)
+    out = shlib.constrain(out, ("batch", None, None))
+    return out, {"moe_aux": a, "moe_z": z}
+
+
 def apply_moe(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,                        # (B, S, D) normed
@@ -105,36 +255,24 @@ def apply_moe(
     cfg: ArchConfig,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     m = cfg.moe
-    B, S, D = x.shape
-    T = B * S
-    xt = x.reshape(T, D)
-    top_i, cw, ci, aux = route(p, xt, cfg)
-    E, C = ci.shape
+    S = x.shape[1]
+    mesh = shlib.get_mesh()
+    if mesh is None or not shlib.is_dtensor(x):
+        return _moe_dense(p, x, cfg)
+    if ("model" in shlib.axis_names(mesh)
+            and m.n_experts % shlib.axis_size(mesh, "model") == 0
+            and S % shlib.axis_size(mesh, "model") == 0):
+        return apply_moe_ep(p, x, cfg=cfg, mesh=mesh)
+    # any other mesh: the whole batch on every rank, then the batch layout
+    rep = list(shlib.placements(mesh, ()))
+    leaves = list(tree_leaves(p))
 
-    xe = xt[ci.reshape(-1)].reshape(E, C, D)
-    f = L.activation("silu" if cfg.act == "silu" else "gelu")
-    w = {k: p[k].to(x.dtype) for k in ("wi_gate", "wi_up", "wo")}
-    h = f(torch.bmm(xe, w["wi_gate"])) * torch.bmm(xe, w["wi_up"])
-    ye = torch.bmm(h, w["wo"])                             # (E, C, D)
-    ye = ye * cw.to(ye.dtype)[..., None]                   # 0 where untaken
-    ye = ye.to(x.dtype).reshape(E * C, D)
+    def dense(xr, *ws):
+        out, aux = _moe_dense(tree_unflatten(p, iter(ws)), xr, cfg)
+        return out, aux["moe_aux"], aux["moe_z"]
 
-    # combine: slot[e, t] is the row of ye that expert e kept token t in (-1
-    # if none; untaken slots land in a spare column T, no host sync); a
-    # token's experts in ascending order, their outputs added in turn
-    col = torch.where(cw > 0.0, ci, T)
-    rows = torch.arange(E * C, device=x.device).reshape(E, C)
-    slot = torch.full((E, T + 1), -1, dtype=torch.long, device=x.device)
-    slot = slot.scatter_(1, col, rows)[:, :T]
-    experts = torch.sort(top_i, dim=-1).values              # (T, k)
-    tok = torch.arange(T, device=x.device)
-    out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
-    for j in range(m.top_k):
-        sj = slot[experts[:, j], tok]                       # (T,)
-        kept = (sj >= 0)[:, None]
-        out = out + torch.where(kept, ye[sj.clamp_min(0)], 0)
-    out = out.reshape(B, S, D)
+    out, a, z = shlib.local_map(dense, (rep, rep, rep),
+                                (rep,) * (1 + len(leaves)))(x, *leaves)
+    out = shlib.constrain(out, ("batch", None, None))
+    return out, {"moe_aux": a, "moe_z": z}
 
-    if m.n_shared:
-        out = out + mlp_apply(p["shared"], x, cfg.act)
-    return out, aux

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import Spec, rms_norm
+from repro_torch.parallel import sharding as shlib
 
 
 def _st_read(arr, idx):
@@ -35,6 +36,53 @@ def _st_write(arr, idx, val):
         return val
     arr[idx] = val
     return arr
+
+
+def _scan(q, k, v, log_decay, *, bonus=None, chunk=128, impl=None):
+    """``kops.linear_scan`` (zero initial state).  Under a mesh (DTensor
+    inputs) each rank runs the kernel on its local shards through
+    ``local_map``: batch over the FSDP axes, heads over ``model`` where
+    they divide it; the kernel never sees a DTensor."""
+    if not shlib.is_dtensor(q):
+        return kops.linear_scan(q, k, v, log_decay, bonus=bonus, chunk=chunk,
+                                impl=impl)
+    mesh = q.device_mesh
+    bh = shlib.layout(mesh, ("batch", None, "heads", None), q)
+    ld = bh[:] if log_decay.dim() == 4 else shlib.layout(
+        mesh, ("batch", None, "heads"), log_decay)
+    st = shlib.layout(mesh, ("batch", "heads", None, None),
+                      torch.empty(q.shape[0], q.shape[2], 1, 1,
+                                  device="meta"))
+    ins = (bh, bh, bh, ld)
+    args = (q, k, v, log_decay)
+    if bonus is not None:
+        up = shlib.layout(mesh, ("heads", None), bonus)
+        ins += (up,)
+        args += (bonus,)
+    grads = ins[:4] + tuple(shlib.partial_over(p, bh) for p in ins[4:])
+
+    def local(q, k, v, ld, u=None):
+        return kops.linear_scan(q, k, v, ld, bonus=u, chunk=chunk, impl=impl)
+    return shlib.local_map(local, (bh, st), ins, grads)(*args)
+
+
+def _scan_step(q, k, v, log_decay, state, bonus=None):
+    """``kops.linear_scan_step`` (decode).  Under a mesh each rank steps
+    its own batch rows and heads (``local_map``), as the scan does."""
+    if not shlib.is_dtensor(q):
+        return kops.linear_scan_step(q, k, v, log_decay, state, bonus)
+    mesh = q.device_mesh
+    bh = shlib.layout(mesh, ("batch", "heads", None), q)
+    ld = shlib.layout(mesh, ("batch", "heads") + (None,) * (
+        log_decay.dim() - 2), log_decay)
+    st = shlib.layout(mesh, ("batch", "heads", None, None), state)
+    ins, args = (bh, bh, bh, ld, st), (q, k, v, log_decay, state)
+    if bonus is not None:
+        ins += (shlib.layout(mesh, ("heads", None), bonus),)
+        args += (bonus,)
+    grads = ins[:5] + tuple(shlib.partial_over(p, bh) for p in ins[5:])
+    return shlib.local_map(kops.linear_scan_step, (bh, st), ins,
+                           grads)(*args)
 
 
 def _softplus(x):
@@ -128,15 +176,14 @@ def apply_mamba2(
     vv = xs * dt[..., None].to(xs.dtype)
 
     if mode == "decode":
-        out, new_state = kops.linear_scan_step(
+        out, new_state = _scan_step(
             qk_C[:, 0], qk_B[:, 0], vv[:, 0], log_decay[:, 0],
             _st_read(cache["ssm"], layer_idx))
         y = out[:, None]                                 # (B,1,nh,hd)
         new_cache = {"conv": _st_write(cache["conv"], layer_idx, new_conv),
                      "ssm": _st_write(cache["ssm"], layer_idx, new_state)}
     else:
-        y, final_state = kops.linear_scan(qk_C, qk_B, vv, log_decay,
-                                          impl=impl)
+        y, final_state = _scan(qk_C, qk_B, vv, log_decay, impl=impl)
         new_cache = ({"conv": new_conv, "ssm": final_state}
                      if mode == "prefill" else None)
 
@@ -233,14 +280,14 @@ def apply_rwkv6(
     wh = w_log.reshape(B, S, H, hd)
 
     if mode == "decode":
-        out, new_state = kops.linear_scan_step(
+        out, new_state = _scan_step(
             rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
             _st_read(cache["state"], layer_idx), p["u"])
         y = out[:, None]
         tm_shift = x[:, 0]
     else:
-        y, new_state = kops.linear_scan(rh, kh, vh, wh, bonus=p["u"],
-                                        chunk=32, impl=impl)
+        y, new_state = _scan(rh, kh, vh, wh, bonus=p["u"], chunk=32,
+                             impl=impl)
         tm_shift = x[:, -1].clone()
     # per-head group norm then gate
     y = y.reshape(B, -1, H, hd)

@@ -22,6 +22,8 @@ from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
 
+from repro_torch.parallel.sharding import under_mesh
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor          # int32 scalar, on the parameters' device
@@ -58,8 +60,10 @@ def tree_map(fn, tree, *rest):
 
 
 def adamw_init(params) -> AdamWState:
+    """Zero f32 moments laid out as the parameters (DTensor parameters
+    give DTensor moments with the same placements)."""
     dev = next(tree_leaves(params)).device
-    z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    z = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=tree_map(z, params), v=tree_map(z, params))
 
@@ -70,6 +74,7 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
+@under_mesh
 def adamw_update(
     grads, state: AdamWState, params, *,
     lr: Callable[[torch.Tensor], torch.Tensor],
@@ -117,5 +122,18 @@ def cosine_schedule(peak_lr: float = 3e-4, warmup: int = 200,
     return lr
 
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_schedule",
-           "global_norm", "tree_leaves", "tree_map", "tree_unflatten"]
+def opt_state_axes(params_axes) -> AdamWState:
+    """Optimizer-state logical axes mirror the parameter axes."""
+    return AdamWState(step=(), m=params_axes, v=params_axes)
+
+
+def abstract_opt_state(p_abs) -> AdamWState:
+    """The optimizer state of a ``meta`` parameter tree, on ``meta``."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=tree_map(f32, p_abs), v=tree_map(f32, p_abs))
+
+
+__all__ = ["AdamWState", "abstract_opt_state", "adamw_init", "adamw_update", "cosine_schedule",
+           "global_norm", "opt_state_axes", "tree_leaves", "tree_map",
+           "tree_unflatten"]

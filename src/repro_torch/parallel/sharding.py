@@ -1,0 +1,417 @@
+"""Logical-axis -> mesh-axis sharding rules (MaxText-style), with per-tensor
+conflict resolution and divisibility fallback: the reference's
+``parallel/sharding.py`` onto a ``torch.distributed`` ``DeviceMesh``.
+
+Production layout: FSDP over ``data`` (+``pod``), tensor/expert
+parallelism over ``model``.  A logical dim is dropped to replicated when
+(a) its mesh axis is already taken by an earlier dim of the same tensor or
+(b) the dim size does not divide the axis size (e.g. whisper's 12 heads on
+a 16-way model axis).  long_500k's sequence sharding (SP) falls out of
+rule order: batch=1 fails divisibility, so ``kv_seq`` claims ``data``.
+
+:func:`spec_for` returns the reference's ``PartitionSpec`` entries as a
+plain tuple (``None | str | tuple[str, ...]`` per tensor dim, trailing
+``None``s dropped); :func:`placements` turns one into DTensor placements.
+A mesh is anything with ``mesh_dim_names`` and ``shape``: a
+``DeviceMesh``, or an :class:`AbstractMesh` (names and sizes, no devices,
+no process group) for deciding layouts alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+Spec = Tuple[Any, ...]
+
+# logical axis -> candidate mesh targets, tried in order
+# ("fsdp" resolves to ("pod","data"))
+RULES: Dict[str, Any] = {
+    "vocab": ["model"],
+    "embed": ["fsdp"],
+    "heads": ["model"],
+    "kv_heads": ["model"],
+    "heads_embed": ["model"],
+    "mlp": ["model"],
+    "mlp_state": ["model"],
+    "experts": ["model"],
+    "experts_router": [],
+    "q_lora": [],
+    "kv_lora": [],
+    "head_dim": [],
+    "layers": [],
+    "conv": [],
+    "lora": [],
+    "seq": [],
+    "embed2": ["fsdp"],
+    "embed_out": [],
+    # activations / caches
+    "batch": ["fsdp"],
+    # sequence dim of KV caches: claims whatever primary consumers left free
+    # -- "fsdp" when batch=1 (long_500k SP), "model" when kv_heads doesn't
+    # divide the model axis
+    "kv_seq": ["fsdp", "model"],
+}
+
+# assignment priority: primary consumers claim axes before fallbacks
+_PRIORITY = {
+    "vocab": 0, "heads": 0, "kv_heads": 0, "heads_embed": 0, "mlp": 0,
+    "mlp_state": 0, "experts": 0,
+    "embed": 1, "embed2": 1, "batch": 1,
+    "kv_seq": 9,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's shape and axis names with no devices behind it (the
+    counterpart of ``jax.sharding.AbstractMesh``)."""
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+
+    def size(self, dim: Optional[int] = None) -> int:
+        return math.prod(self.shape) if dim is None else self.shape[dim]
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def axis_size(mesh, name: str) -> int:
+    return int(mesh.shape[axis_names(mesh).index(name)])
+
+
+def fsdp_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's FSDP axes: ``("pod", "data")`` where present."""
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+
+
+def _mesh_axes(mesh, target) -> Tuple[str, ...]:
+    if target is None:
+        return ()
+    if isinstance(target, (list, tuple)):
+        for t in target:
+            axes = _mesh_axes(mesh, t)
+            if axes:
+                return axes
+        return ()
+    if target == "fsdp":
+        return fsdp_axes(mesh)
+    return (target,) if target in axis_names(mesh) else ()
+
+
+def _axis_size(mesh, axes: Tuple[str, ...]) -> int:
+    return math.prod(axis_size(mesh, a) for a in axes)
+
+
+def spec_for(mesh, dims: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None) -> Spec:
+    """Resolve one tensor's logical dims to a partition spec.
+
+    Dims are assigned in _PRIORITY order (not positional order) so fallback
+    consumers like kv_seq only claim axes the primary consumers left free;
+    a dim is dropped to replicated when its size doesn't divide the axis."""
+    taken = set()
+    out: list = [None] * len(dims)
+    order = sorted(range(len(dims)),
+                   key=lambda i: (_PRIORITY.get(dims[i], 5), i))
+    for i in order:
+        d = dims[i]
+        candidates = RULES.get(d, []) if d is not None else []
+        for target in candidates:
+            axes = _mesh_axes(mesh, target)
+            axes = tuple(a for a in axes if a not in taken)
+            if not axes:
+                continue
+            if shape is not None and shape[i] % _axis_size(mesh, axes) != 0:
+                # try the suffix (just "data" of ("pod","data")), else next
+                if (len(axes) > 1
+                        and shape[i] % _axis_size(mesh, axes[-1:]) == 0):
+                    axes = axes[-1:]
+                else:
+                    continue
+            taken.update(axes)
+            out[i] = axes[0] if len(axes) == 1 else tuple(axes)
+            break
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def placements(mesh, spec: Spec):
+    """DTensor placements of a partition spec on ``mesh``: a tensor dim
+    over one or more mesh axes is ``Shard(dim)`` on each of them (in mesh
+    order, so ``("pod", "data")`` splits pod-major as the reference's
+    spec does); every other mesh axis is ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    where = {}
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            where[a] = d
+    return tuple(Shard(where[a]) if a in where else Replicate()
+                 for a in axis_names(mesh))
+
+
+_CURRENT_MESH = None
+
+
+def set_mesh(mesh) -> None:
+    """Install the mesh used by in-model activation sharding constraints
+    and the mesh-only branches (context-parallel flash, expert-parallel
+    MoE).  None disables them (single-device runs)."""
+    global _CURRENT_MESH
+    _CURRENT_MESH = mesh
+
+
+def get_mesh():
+    return _CURRENT_MESH
+
+
+def _set_implicit(on: bool) -> bool:
+    """Turn DTensor's implicit replication on or off for this thread;
+    returns what it was."""
+    from torch.distributed.tensor import DTensor
+    d = DTensor._op_dispatcher
+    was = bool(d._allow_implicit_replication)
+    d._allow_implicit_replication = on
+    return was
+
+
+def under_mesh(fn):
+    """Run ``fn`` with DTensor's implicit replication on while a mesh is
+    set: a plain tensor that meets a DTensor (a mask, a position table, a
+    scalar) is taken as replicated on every rank.  Reentrant; the flag is
+    per thread, so a backward pass gets it from :func:`backward_under_mesh`."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if _CURRENT_MESH is None:
+            return fn(*args, **kwargs)
+        was = _set_implicit(True)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _set_implicit(was)
+    return wrapped
+
+
+class _ImplicitInBackward(torch.autograd.Function):
+    """Identity whose backward turns implicit replication on for the
+    thread that runs the rest of the backward pass (autograd runs a CUDA
+    graph's backward on a device thread of its own)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _set_implicit(True)
+        return g
+
+
+def backward_under_mesh(loss):
+    """``loss`` marked so that its backward pass, on whichever thread
+    autograd runs it, takes plain tensors as replicated (see
+    :func:`under_mesh`); as it is without a mesh."""
+    if _CURRENT_MESH is None or not is_dtensor(loss):
+        return loss
+    return _ImplicitInBackward.apply(loss)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def constrain(x, dims: Sequence[Optional[str]]):
+    """Redistribute a DTensor to the layout of its logical dims; a no-op
+    without a mesh or on a plain tensor.
+
+    Keeping the residual stream pinned to (batch=data, ...) stops the
+    sharding propagation from turning FSDP products into batch-replicated
+    partial sums."""
+    if _CURRENT_MESH is None or not is_dtensor(x):
+        return x
+    want = placements(x.device_mesh, spec_for(x.device_mesh, dims, x.shape))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def tree_specs(mesh, axes_tree, shapes_tree=None):
+    """axes tree (+ a matching tree of tensors or shapes) -> spec tree."""
+    if _is_axes_leaf(axes_tree):
+        shape = None if shapes_tree is None else tuple(
+            getattr(shapes_tree, "shape", shapes_tree))
+        return spec_for(mesh, axes_tree, shape)
+    return {k: tree_specs(mesh, v, None if shapes_tree is None
+                          else shapes_tree[k])
+            for k, v in axes_tree.items()}
+
+
+def tree_shardings(mesh, axes_tree, shapes_tree=None):
+    """axes tree (+ matching tensors or shapes) -> tree of placements."""
+    specs = tree_specs(mesh, axes_tree, shapes_tree)
+
+    def walk(s):
+        if isinstance(s, dict):
+            return {k: walk(v) for k, v in s.items()}
+        return placements(mesh, s)
+    return walk(specs)
+
+
+def batch_spec(mesh) -> Spec:
+    """tokens/targets: batch over (pod, data)."""
+    fsdp = fsdp_axes(mesh)
+    return (fsdp if len(fsdp) > 1 else (fsdp[0] if fsdp else None),)
+
+
+def batch_sharding(mesh, ndim: int = 2):
+    return placements(mesh, batch_spec(mesh))
+
+
+def input_specs_for(mesh, specs: Dict[str, Any], cache_axes=None):
+    """Partition specs for the ``input_specs()`` dict of one dry-run cell
+    (the reference's ``input_shardings``, as specs)."""
+    out: Dict[str, Any] = {}
+    for name, v in specs.items():
+        if name in ("tokens", "targets"):
+            out[name] = spec_for(mesh, ("batch",) + (None,) * (v.dim() - 1),
+                                 tuple(v.shape))
+        elif name == "frontend":
+            out[name] = spec_for(mesh, ("batch", None, None), tuple(v.shape))
+        elif name == "cache":
+            assert cache_axes is not None
+            out[name] = tree_specs(mesh, cache_axes, v)
+        else:
+            raise KeyError(name)
+    return out
+
+
+def input_shardings(mesh, specs: Dict[str, Any], cache_axes=None):
+    """Placements for the ``input_specs()`` dict of one dry-run cell."""
+    def walk(s):
+        if isinstance(s, dict):
+            return {k: walk(v) for k, v in s.items()}
+        return placements(mesh, s)
+    return walk(input_specs_for(mesh, specs, cache_axes))
+
+
+def distribute(t: torch.Tensor, mesh, spec: Spec):
+    """``t`` (the whole tensor, the same on every rank) as a DTensor laid
+    out by ``spec``: each rank keeps its own shard; no communication."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, placements(mesh, spec),
+                             src_data_rank=None)
+
+
+def tree_distribute(mesh, tree, axes_tree):
+    """Every leaf of ``tree`` laid out by :func:`spec_for` of its logical
+    axes and shape."""
+    if isinstance(tree, dict):
+        return {k: tree_distribute(mesh, v, axes_tree[k])
+                for k, v in tree.items()}
+    return distribute(tree, mesh, spec_for(mesh, axes_tree, tuple(tree.shape)))
+
+
+def local_map(fn, out_placements, in_placements, in_grad_placements=None):
+    """``fn`` over each rank's local shards of DTensor arguments (the
+    counterpart of ``shard_map``): inputs redistributed to
+    ``in_placements`` first, outputs wrapped as DTensors with
+    ``out_placements``; differentiable.  An input that is replicated over
+    a mesh axis but meets different data on each rank of it (a weight over
+    batch-sharded tokens) takes :func:`partial_over` as its grad
+    placements.  How a kernel is reached under a mesh: its wrapper reads
+    ``data_ptr()``, so it must see local tensors."""
+    from torch.distributed.tensor.experimental import local_map as _lm
+    return _lm(fn, out_placements=out_placements,
+               in_placements=in_placements,
+               in_grad_placements=in_grad_placements,
+               redistribute_inputs=True)
+
+
+def partial_over(placements_, data_placements):
+    """The grad placements of an input laid out as ``placements_`` whose
+    every use meets data laid out as ``data_placements``: ``Partial()``
+    (a sum over ranks) on each mesh axis the data is sharded over and the
+    input is not."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return [Partial() if isinstance(d, Shard) and isinstance(p, Replicate)
+            else p for p, d in zip(placements_, data_placements)]
+
+
+def layout(mesh, dims, t) -> list:
+    """The placements of ``t`` by its logical dims (and shape)."""
+    return list(placements(mesh, spec_for(mesh, dims, tuple(t.shape))))
+
+
+def unshard(tree):
+    """FSDP's gather at use: every DTensor leaf of ``tree`` redistributed
+    to be whole over the FSDP axes (``pod``, ``data``), keeping its
+    ``model`` sharding (tensor / expert parallelism); other leaves as they
+    are.  Its backward is the reduce-scatter of the grads back to the
+    shards.  The model calls it per layer (under remat, again in the
+    backward), so one layer's weights are whole at a time."""
+    if isinstance(tree, dict):
+        return {k: unshard(v) for k, v in tree.items()}
+    if not is_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import Replicate
+    mesh = tree.device_mesh
+    fsdp = set(fsdp_axes(mesh))
+    want = tuple(Replicate() if n in fsdp else p
+                 for n, p in zip(axis_names(mesh), tree.placements))
+    if want == tuple(tree.placements):
+        return tree
+    return tree.redistribute(mesh, want)
+
+
+def replicated_like(t: torch.Tensor, ref):
+    """``t`` (the same on every rank) as a replicated DTensor on ``ref``'s
+    mesh when ``ref`` is a DTensor; else ``t`` as it is."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def vocab_ids(logits):
+    """``arange(V)`` (V: the DTensor ``logits``' last dim) laid out as that
+    dim is: sharded where the logits' vocab dim is, else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = logits.dim() - 1
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
+          for p in logits.placements]
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(ids, logits.device_mesh, pl, src_data_rank=None)
+
+
+def argmax_last(x):
+    """``x.argmax(-1)``; a DTensor's last dim is gathered whole first where
+    it is sharded (the vocab over ``model``), so each rank takes the
+    argmax of whole rows (a greedy decode step gathers (B, V) logits)."""
+    if not is_dtensor(x):
+        return x.argmax(dim=-1)
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    want = [Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in x.placements]
+    return x.redistribute(x.device_mesh, want).argmax(dim=-1)
+
+
+def full(x):
+    """A DTensor gathered whole on every rank; a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x

@@ -1,0 +1,241 @@
+"""Per-rank counts of a step's work, as it runs: the counterpart of the
+reference's ``roofline/hlo_stats.py``.  There is no HLO to parse in eager
+PyTorch, so :class:`OpStats` is a ``TorchDispatchMode`` that sees every op
+one rank runs -- under DTensor, the local ops and the collectives that
+DTensor's sharding propagation turns each global op into -- and records:
+
+* FLOPs of every product (``torch.utils.flop_counter``'s formulas: mm,
+  bmm, addmm, baddbmm, convolutions, attention), and of the port's kernels
+  on the meta device (:func:`record_kernel`: the work of the kernel the
+  card would run);
+* bytes read and written at op granularity: each op's tensor inputs and
+  outputs once.  This is EAGER traffic -- every elementwise op reads and
+  writes device memory -- not XLA's fusion-level count, so it is an upper
+  bound on what a fused program moves.  ``hbm_bytes`` leaves out pure data
+  movement (copies, casts, views, concatenations), as the reference's
+  ``hbm_bytes_semantic`` does; ``hbm_bytes_raw`` keeps it;
+* each collective (``_c10d_functional`` all-reduce, all-gather,
+  reduce-scatter, all-to-all, broadcast; DTensor's shard-dim all-to-all;
+  ``c10d`` send / recv), with its group size and payload, through the ring
+  formulas of ``roofline/analysis.py``;
+* live bytes: the peak of the bytes held by tensors the step created
+  (saved activations included), for the dry-run's ``temp_bytes``.
+
+Python loops run their body once per trip, so a layer loop counts once
+per layer by nature (the reference's analyzer had to multiply while-loop
+bodies by their trip counts).
+"""
+
+from __future__ import annotations
+
+import weakref
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.roofline.analysis import CollectiveStats, ring_bytes
+
+_ACTIVE: List["OpStats"] = []
+
+# collective ops -> kind (payload: the full tensor the ring moves)
+_FUNCOL = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+    "shard_dim_alltoall": "all-to-all",
+}
+_C10D = {
+    "allreduce_": "all-reduce", "allgather_": "all-gather",
+    "_allgather_base_": "all-gather", "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter", "alltoall_base_": "all-to-all",
+    "broadcast_": "broadcast", "send": "collective-permute",
+}
+# allocations: no traffic at all
+_ALLOC = {"empty", "empty_strided", "empty_like", "new_empty",
+          "new_empty_strided", "empty_permuted"}
+# pure data movement: left out of the semantic byte count
+_MOVEMENT = {"copy_", "_to_copy", "clone", "cat", "stack", "contiguous",
+             "index_select", "_unsafe_view", "expand", "repeat",
+             "constant_pad_nd", "slice_scatter", "select_scatter", "split",
+             "split_with_sizes", "unbind", "zeros_like", "empty_like",
+             "new_empty", "new_zeros", "fill_", "zero_", "empty", "zeros",
+             "full", "arange", "lift_fresh", "detach"}
+
+
+def _under_fake() -> bool:
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for e in x:
+            yield from _tensors(e)
+
+
+@dataclass
+class OpStats(TorchDispatchMode):
+    """Enter it around one rank's step.  A product's FLOPs use the local
+    shapes: a rank's own share of a sharded product."""
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    hbm_bytes_raw: float = 0.0
+    coll: CollectiveStats = field(default_factory=CollectiveStats)
+    collectives: List[Tuple[str, float, int]] = field(default_factory=list)
+    kernels: Dict[str, int] = field(default_factory=dict)
+    n_ops: int = 0
+    live_bytes: int = 0
+    peak_bytes: int = 0
+
+    def __post_init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        self._flop_registry = flop_registry
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(
+            lambda t: t, lambda t: t)    # saved tensors keep their object
+        self._hooks.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self._hooks.__exit__(*exc)
+        _ACTIVE.remove(self)
+
+    # -- live bytes ----------------------------------------------------------
+    def _track(self, t: torch.Tensor) -> None:
+        n = _nbytes(t)
+        if not n:
+            return
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(t, self._release, n)
+
+    def _release(self, n: int) -> None:
+        self.live_bytes -= n
+
+    # -- recording -----------------------------------------------------------
+    def add_collective(self, kind: str, payload: float, n: int) -> None:
+        self.collectives.append((kind, float(payload), int(n)))
+        self.coll.add(kind, ring_bytes(kind, payload, n))
+
+    def add_kernel(self, name: str, flops: float, nbytes: float) -> None:
+        self.kernels[name] = self.kernels.get(name, 0) + 1
+        self.flops += flops
+        self.hbm_bytes += nbytes
+        self.hbm_bytes_raw += nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            # let DTensor turn the global op into local ops and
+            # collectives; this mode sees those next
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if _under_fake():
+            # DTensor's sharding propagation runs each op once more on
+            # global-shape fake tensors to learn the output's metadata:
+            # no work of any rank
+            return out
+        self.n_ops += 1
+        ns = func.namespace
+        name = func._schema.name.split("::")[-1]
+        ins = list(_tensors(args)) + list(_tensors(list(kwargs.values())))
+        outs = list(_tensors(out))
+        if ns in ("_c10d_functional", "_dtensor") and name in _FUNCOL:
+            group = [a for a in args if isinstance(a, str)][-1]
+            from torch.distributed.distributed_c10d import (
+                _resolve_process_group)
+            n = _resolve_process_group(group).size()
+            kind = _FUNCOL[name]
+            payload = (_nbytes(outs[0]) if kind == "all-gather"
+                       else _nbytes(ins[0]))
+            self.add_collective(kind, payload, n)
+            return out
+        if ns == "c10d" and name in _C10D:
+            pg = next((a for a in args if hasattr(a, "size")
+                       and not isinstance(a, torch.Tensor)), None)
+            n = pg.size() if pg is not None else 2
+            kind = _C10D[name]
+            self.add_collective(kind, sum(_nbytes(t) for t in ins), n)
+            return out
+        if ns in ("_c10d_functional", "c10d"):
+            return out                      # wait_tensor, recv, barrier
+        flop_fn = self._flop_registry.get(func._overloadpacket)
+        if flop_fn is not None:
+            self.flops += flop_fn(*args, **kwargs, out_val=out)
+        views = any(r.alias_info is not None for r in func._schema.returns)
+        if name in _ALLOC:
+            for t in outs:
+                self._track(t)
+            return out
+        if views and name not in ("copy_", "fill_", "zero_"):
+            return out                      # a view or in-place: no traffic
+        nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        self.hbm_bytes_raw += nbytes
+        if name not in _MOVEMENT:
+            self.hbm_bytes += nbytes
+        if not views:
+            for t in outs:
+                self._track(t)
+        return out
+
+    def as_dict(self) -> Dict:
+        return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,
+                "hbm_bytes_raw": self.hbm_bytes_raw,
+                "collective_bytes": self.coll.wire_bytes,
+                "collective_by_kind": dict(self.coll.by_kind),
+                "collective_count": self.coll.count,
+                "kernels": dict(self.kernels), "peak_live_bytes":
+                self.peak_bytes, "ops": self.n_ops}
+
+
+def active() -> Optional[OpStats]:
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+class _MetaKernel(torch.autograd.Function):
+    """A kernel's stand-in on the meta device: the output's shape, the
+    kernel's work recorded forward, and the backward's (the plain version's
+    VJP: its products, 2.5x the forward's operations, and the inputs, the
+    output's gradient and the inputs' gradients moved once)."""
+
+    @staticmethod
+    def forward(ctx, name, shape, dtype, flops, nbytes, *inputs):
+        ctx.name, ctx.flops, ctx.nbytes = name, flops, nbytes
+        ctx.shapes = [(t.shape, t.dtype) for t in inputs]
+        rec = active()
+        if rec is not None:
+            rec.add_kernel(name, flops, nbytes)
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    @staticmethod
+    def backward(ctx, g):
+        rec = active()
+        if rec is not None:
+            rec.add_kernel(ctx.name + ".vjp", 2.5 * ctx.flops,
+                           2 * ctx.nbytes)
+        return (None,) * 5 + tuple(
+            torch.zeros(s, dtype=d, device="meta") for s, d in ctx.shapes)
+
+
+def record_kernel(name: str, shape, dtype, flops: float, nbytes: float,
+                  *inputs) -> torch.Tensor:
+    """An empty meta tensor of ``shape`` standing for kernel ``name``'s
+    output, with its work recorded in the active :class:`OpStats` (none:
+    nothing recorded) and a backward that records its VJP's."""
+    return _MetaKernel.apply(name, tuple(shape), dtype, float(flops),
+                             float(nbytes), *inputs)

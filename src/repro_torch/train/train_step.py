@@ -7,7 +7,11 @@
 (``_mtp_loss``) where the config has the head.  ``make_train_step``
 differentiates it with autograd -- through the flash and scan kernels'
 ``autograd.Function``s on the card (``kernels/ops.py``) -- and applies the
-reference's AdamW (``optim/adamw.py``) in place.
+reference's AdamW (``optim/adamw.py``) in place.  The same step runs
+sharded when the parameters and moments are DTensors on the mesh set with
+``parallel/sharding.set_mesh`` and the batch is laid out over the FSDP
+axes: the gradients come back as DTensors, and AdamW updates each rank's
+shards.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import apply_attn
 from repro_torch.models.model import apply_model
+from repro_torch.parallel.sharding import (argmax_last, backward_under_mesh,
+                                          is_dtensor, under_mesh, unshard,
+                                          vocab_ids)
 from repro_torch.optim.adamw import (AdamWState, adamw_update,
                                      cosine_schedule, tree_leaves, tree_map,
                                      tree_unflatten)
@@ -29,7 +36,15 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean CE over (B, S), in f32: logsumexp minus the target's logit."""
     l32 = logits.float()
     lse = torch.logsumexp(l32, dim=-1)
-    ll = l32.gather(-1, targets.long()[..., None])[..., 0]
+    if is_dtensor(l32):
+        # vocab may be model-sharded: a one-hot product keeps the reduction
+        # local + one sum over the shards, as the reference's einsum does;
+        # the vocab ids laid out as the logits' vocab dim, so each rank
+        # compares its own shard only
+        ids = vocab_ids(l32)
+        ll = (l32 * (targets.long()[..., None] == ids)).sum(-1)
+    else:
+        ll = l32.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - ll).mean()
 
 
@@ -38,10 +53,10 @@ def _mtp_loss(params, cfg: ArchConfig, hidden, tokens, targets,
     """DeepSeek-V3 multi-token prediction: predict t+2 from a fused
     (hidden_t, embed(t+1)) stream through one extra dense block in train
     mode; CE over all but the last two positions."""
-    mtp = params["mtp"]
+    mtp = unshard(params["mtp"])
     dt = L.torch_dtype(cfg.dtype)
     nxt = torch.roll(tokens, -1, dims=1)
-    e = params["embed"][nxt.long()].to(dt)
+    e = L.embed_lookup(params["embed"], nxt).to(dt)
     h = torch.cat([L.rms_norm(hidden, mtp["norm_h"], cfg.norm_eps),
                    L.rms_norm(e, mtp["norm_e"], cfg.norm_eps)],
                   dim=-1) @ mtp["proj"].to(dt)
@@ -55,11 +70,12 @@ def _mtp_loss(params, cfg: ArchConfig, hidden, tokens, targets,
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = h @ head.to(dt)
+    logits = h @ unshard(head).to(dt)
     t2 = torch.roll(targets, -1, dims=1)
     return cross_entropy(logits[:, :-2], t2[:, :-2])
 
 
+@under_mesh
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             impl: Optional[str] = None):
     """``(loss, metrics)``: metrics ``ce``, ``moe_aux``, ``mtp`` (with the
@@ -81,6 +97,7 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     return loss, metrics
 
 
+@under_mesh
 def value_and_grad(params, batch, cfg: ArchConfig,
                    impl: Optional[str] = None):
     """``((loss, metrics), grads)``: ``jax.value_and_grad(loss_fn,
@@ -89,7 +106,7 @@ def value_and_grad(params, batch, cfg: ArchConfig,
     grad)."""
     leaves = with_grad(params)
     loss, metrics = loss_fn(leaves, batch, cfg, impl=impl)
-    grads = grad_tree(loss, leaves)
+    grads = grad_tree(backward_under_mesh(loss), leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), grads
 
@@ -143,7 +160,7 @@ def make_serve_step(cfg: ArchConfig, impl: Optional[str] = None):
     def serve_step(params, cache, tokens):
         logits, cache, _ = apply_model(params, tokens, cfg=cfg, mode="decode",
                                        cache=cache, impl=impl)
-        next_tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        next_tok = argmax_last(logits[:, -1]).to(torch.int32)
         return next_tok, cache
 
     return serve_step

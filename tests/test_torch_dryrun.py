@@ -1,0 +1,149 @@
+"""The port's dry-run: tests/test_dryrun.py's three cells through
+``python -m repro_torch.launch.dryrun`` (a ``fake`` process group of 256 /
+512 ranks and the meta device, in a subprocess), and the op counter's
+counterparts of tests/test_roofline.py: exact FLOPs of a loop-free product
+chain, loops counted per trip, the ring formulas on recorded collectives,
+pure data movement out of the semantic bytes, and DTensor's all-to-all
+counted as one on a CPU mesh."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.roofline.analysis import collective_bytes, ring_bytes
+from repro_torch.roofline.op_stats import OpStats, record_kernel
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _dryrun(args):
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun"]
+                       + args, capture_output=True, text=True, timeout=600,
+                       env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr[-2000:]
+    return r.stdout
+
+
+def test_single_pod_cell_runs(tmp_path):
+    out = _dryrun(["--arch", "rwkv6_1p6b", "--shape", "decode_32k",
+                   "--out", str(tmp_path)])
+    assert "OK" in out
+    d = json.loads((tmp_path / "rwkv6_1p6b_decode_32k.json").read_text())
+    assert d["status"] == "ok"
+    assert d["n_devices"] == 256
+    r = d["roofline"]
+    assert r["flops_per_device"] > 0
+    assert r["bottleneck"] in ("compute", "memory", "collective")
+    assert d["memory"]["argument_bytes"] > 0
+    assert d["memory"]["per_device_total_gib"] > 0
+
+
+def test_multi_pod_cell_runs(tmp_path):
+    out = _dryrun(["--arch", "whisper_small", "--shape", "prefill_32k",
+                   "--multi-pod", "--out", str(tmp_path)])
+    assert "OK" in out
+    d = json.loads((tmp_path / "whisper_small_prefill_32k_mp.json")
+                   .read_text())
+    assert d["status"] == "ok"
+    assert d["n_devices"] == 512
+    # whisper's 12 heads do not divide 16: every flash call is a CP shard
+    assert d["kernels"]["flash_attention"] > 0
+
+
+def test_carveout_cell_skips(tmp_path):
+    out = _dryrun(["--arch", "gemma2_27b", "--shape", "long_500k",
+                   "--out", str(tmp_path)])
+    assert "SKIP" in out
+
+
+def _meta(*shape):
+    return torch.empty(shape, device="meta")
+
+
+def test_loop_free_product_flops_exact():
+    with OpStats() as st:
+        (_meta(512, 256) @ _meta(256, 1024)) @ _meta(1024, 128)
+    assert st.flops == 2 * 512 * 256 * 1024 + 2 * 512 * 1024 * 128
+
+
+def test_loop_counts_per_trip():
+    ws = _meta(10, 128, 128)
+    with OpStats() as st:
+        x = _meta(128, 128)
+        for i in range(10):
+            x = x @ ws[i]
+    assert st.flops == 10 * 2 * 128 ** 3
+
+
+def test_nested_loops_compose():
+    ws = _meta(5, 64, 64)
+    with OpStats() as st:
+        x = _meta(64, 64)
+        for i in range(5):
+            for _ in range(3):
+                x = x @ ws[i]
+    assert st.flops == 5 * 3 * 2 * 64 ** 3
+
+
+def test_collective_ring_formulas():
+    st = collective_bytes([("all-reduce", 4096, 4)])
+    # ring AR: 2 * size * (n-1)/n
+    assert abs(st.wire_bytes - 2 * 4096 * 3 / 4) < 1e-6
+    st = collective_bytes([("all-gather", 4096, 8), ("all-to-all", 800, 4),
+                           ("collective-permute", 100, 2)])
+    assert st.wire_bytes == pytest.approx(4096 * 7 / 8 + 800 * 3 / 4 + 100)
+    assert st.count == 3 and set(st.by_kind) == {
+        "all-gather", "all-to-all", "collective-permute"}
+    assert ring_bytes("reduce-scatter", 1000, 1) == 500.0   # n floored at 2
+
+
+def test_semantic_excludes_pure_movement():
+    a = torch.empty(256, 512, device="meta")
+    with OpStats() as st:
+        a.t().contiguous().to(torch.bfloat16)
+    assert st.hbm_bytes == 0 < st.hbm_bytes_raw
+    with OpStats() as st:
+        torch.exp(a)
+    assert st.hbm_bytes == st.hbm_bytes_raw == 2 * 256 * 512 * 4
+
+
+def test_kernel_stand_in_records_forward_and_vjp():
+    q = torch.empty(2, 8, 4, 16, device="meta", requires_grad=True)
+    with OpStats() as st:
+        y = record_kernel("flash_attention", (2, 8, 4, 16), torch.float32,
+                          1000.0, 64.0, q)
+        y.sum().backward()
+    assert st.kernels == {"flash_attention": 1, "flash_attention.vjp": 1}
+    assert st.flops == 1000.0 + 2500.0
+    assert q.grad.shape == q.shape
+
+
+def test_dtensor_all_to_all_counted_as_one():
+    """On a CPU mesh DTensor falls back from all-to-all to all-gather; the
+    dry-run keeps the all-to-all (a GPU mesh's), and the counter sees one
+    all-to-all of the local shard."""
+    code = """
+import torch, torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
+from repro_torch.launch.dryrun import _alltoall_kept, fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.roofline.op_stats import OpStats
+with fake_world(4), _alltoall_kept():
+    mesh = make_host_mesh((4,), ("model",), device_type="cpu")
+    x = DTensor.from_local(torch.empty(8, 32, device="meta"), mesh,
+                           [Shard(0)], run_check=False)
+    with OpStats() as st:
+        x.redistribute(mesh, [Shard(1)])
+    print(st.collectives)
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == \
+        "[('all-to-all', 1024.0, 4)]", r.stdout

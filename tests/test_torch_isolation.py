@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` and
 everything ``chip_smoke.py`` imports loads neither JAX nor the reference
 package, and no source line of the port, of ``chip_smoke.py`` or of the
-port's example (``examples/train_tiny_lm_torch.py``) imports them."""
+port's example (``examples/train_tiny_lm_torch.py``) imports them.  The
+walk covers the distribution modules (``parallel/``, ``launch/mesh.py``,
+``launch/dryrun.py``, ``roofline/``) by name too."""
 
 import os
 import re
@@ -18,6 +20,14 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+want = ["repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
+        "repro_torch.parallel.compression", "repro_torch.parallel.collectives",
+        "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+        "repro_torch.roofline.analysis", "repro_torch.roofline.op_stats"]
+missing = [n for n in want if n not in sys.modules]
+print("missing:", missing)
+if missing:
+    sys.exit(1)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("loaded:", bad)
