@@ -11,8 +11,8 @@ every path's logits through the kernels with the same through the plain
 versions; train zamba2-2.7b, rwkv6-1.6b, deepseek-v3 (cut in depth) and
 whisper-small through the kernels' gradients; run the sharded train step
 (expert-parallel olmoe, context-parallel starcoder2 through the flash
-kernel with its query offset), the int8 ring all-reduce, the pipeline and
-the dry-run on 8 ranks sharing the card; beside them, on the host, the
+kernel with its query offset), a sharded olmoe decode step, the int8 ring
+all-reduce, the pipeline and the dry-run on 8 ranks sharing the card; beside them, on the host, the
 paper's data-structure grid and robustness gauntlet.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
@@ -66,8 +66,10 @@ Phases (any failure raises and exits non-zero; none is caught):
               launched, finite logits below the poison scale.
    smr serve -- the same traffic at 4 new tokens under every safe scheme
               of the SMR registry (SimulatedSMRPolicy, ``gen`` backend)
-              and HazardPtrPOP and EpochPOP on ``vec``, each run a process
-              of its own (``chip_smoke.py --smr-run SCHEME BACKEND``), four
+              and HazardPtrPOP and EpochPOP on ``vec`` (the heavy schemes,
+              HazardEraPOP, HP, HE, HPAsym and DEBRA+, on the 4 prompts
+              sharing a prefix), each run a process of its own
+              (``chip_smoke.py --smr-run SCHEME BACKEND``), four
               at a time: the same checks (NR: nothing freed), one line per
               run with tok/s, inter-token p50/p99, frees, pings,
               publishes, the largest ping stall and the policy's host
@@ -169,8 +171,9 @@ Phases (any failure raises and exits non-zero; none is caught):
               Trainer steps with loss, step time, tokens/s, model TFLOP/s,
               launches a step and peak memory.  zamba2 also: launches a
               step exactly 2 x 9 flash and 2 x 54 scan calls (forward and
-              remat recompute), one step under torch.profiler (forward,
-              backward, the plain VJPs' device time, AdamW), and one
+              remat recompute), one step of its first 3 pattern repeats
+              under torch.profiler (forward, backward, the plain VJPs'
+              device time, AdamW), and one
               step's parameter delta kernels vs plain.  deepseek: a
               nonzero MTP loss and a nonzero grad on every ``mtp`` leaf.
               whisper: an async checkpoint at step 2 restored by a fresh
@@ -188,7 +191,14 @@ Phases (any failure raises and exits non-zero; none is caught):
               dropped and the aux losses off, the unsharded run's routing
               replayed: f32 loss and MoE outputs within 1e-4 relative,
               every grad within 1e-3; then two bf16 train steps with the
-              config's own capacity and aux.  starcoder2-7b at full width
+              config's own capacity and aux.  The same olmoe on the same
+              mesh, one decode step at B=8 after a 64-token prefill (no
+              expert parallelism: each rank its own experts, every weight
+              where it lies): logits and the written K/V against the
+              unsharded step, f32 within 1e-4 relative, bf16 within
+              max(5e-2, 2 x the unsharded bf16 step's own distance from
+              f32), the unsharded f32 step's routing replayed.
+              starcoder2-7b at full width
               cut to 2 layers on (data=1, model=8), context parallel (36
               heads over 8): prefill logits (f32 1e-3, bf16 as the dense
               prefill checks) and an f32 step's grads (1e-3) against the
@@ -197,7 +207,8 @@ Phases (any failure raises and exits non-zero; none is caught):
               layer's gradient size timed), the GPipe pipeline (4 stages
               x 2 replicas, d=4096, atol 1e-4), and three dry-run cells in
               subprocesses (rwkv6 decode_32k, whisper prefill_32k
-              multi-pod, gemma2 long_500k: SKIP).
+              multi-pod, gemma2 long_500k: SKIP), each cell's FLOPs a
+              device beside the reference's dry-run of it (a CPU count).
 
 After each group of phases a ``time: ... done at N s`` line gives the
 time since the card phase began.  The last two lines of standard output
@@ -439,30 +450,39 @@ def check_smem_mirrors() -> None:
         f"shapes")
 
 
+PROFILE_TRIES = 3   # a trace that lost every kernel record is taken again
+
+
 def device_ms(fn, names, calls: int = 20):
     """Device milliseconds per call of ``fn`` of the kernels whose names
     contain one of ``names``, from torch.profiler's kernel times (the
     wrapper's host work excluded), and each kernel's share:
-    ``(total, {kernel: ms per call})``."""
+    ``(total, {kernel: ms per call})``.  A trace with no such kernel is
+    taken again, at most PROFILE_TRIES times (the card's CUPTI tracing
+    has been seen to drop a whole window's kernel records), and said
+    so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and any(n in e.key
-                                                    for n in names):
-            key = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
-                         e.key)
-            per[key] = per.get(key, 0.0) + _dev_us(e) / 1e3 / calls
-    if not per:
-        raise AssertionError(f"the profiler saw no kernel named {names}")
-    return sum(per.values()), per
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and any(n in e.key
+                                                        for n in names):
+                key = re.sub(r"^void |\(anonymous namespace\)::|\(.*$",
+                             "", e.key)
+                per[key] = per.get(key, 0.0) + _dev_us(e) / 1e3 / calls
+        if per:
+            return sum(per.values()), per
+        log(f"  the profiler saw no kernel named {names} (trace {attempt} "
+            f"of {PROFILE_TRIES})")
+    raise AssertionError(f"the profiler saw no kernel named {names}")
 
 
 def _dev_us(e) -> float:
@@ -1069,6 +1089,11 @@ SMR_RUNS = ([(s, "gen") for s in supported_schemes()]
 #: every ping stores or scans max_hp = POOL_PAGES slots): their runs take
 #: minutes, the others seconds
 SMR_HEAVY = ("HazardEraPOP", "HP", "HE", "HPAsym", "DEBRA+")
+#: the heavy schemes serve the first 4 prompts (the 4 that share a 6-page
+#: prefix) of the 8: their host time grows with the pages their readers
+#: protect and retire (HP@gen 155-333 s on the 8 prompts on the H100's
+#: host), and the script's time limit holds every phase after them
+SMR_HEAVY_PROMPTS = 4
 #: smr serve runs at once, one process each: four copies of the weights
 #: (14.8 GB) and the pages (2.1 GB) fit the card's 80 GB beside the
 #: script's own process, which drops its copy during the phase
@@ -1120,11 +1145,14 @@ SMR_MAX_NEW = 4
 
 def smr_serve_run(cfg, params, scheme: str, backend: str, card: str,
                   max_new: int = SMR_MAX_NEW) -> None:
-    """The serve phase's traffic (8 requests, 4 sharing a 96-token prefix)
-    at ``max_new`` tokens each under one scheme of the SMR registry: the
+    """The serve phase's traffic (8 requests, 4 sharing a 96-token prefix;
+    a heavy scheme those 4 alone) at ``max_new`` tokens each under one
+    scheme of the SMR registry: the
     simulator-backed policy decides when each device page is freed (and
     poisoned).  Raises on a failed check; prints one line."""
     prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
+    if scheme in SMR_HEAVY:
+        prompts = prompts[:SMR_HEAVY_PROMPTS]
     eng = _engine(cfg, params, smr=scheme, backend=backend)
     reqs, wall, launches = _serve(eng, prompts, max_new, f"{scheme}@{backend}")
     checks = _serve_checks(eng, reqs, launches, [max_new] * len(reqs),
@@ -2375,6 +2403,11 @@ FWD_ERR_RATIO = 1.1
 # (batch, sequence) of each model's train runs
 TRAIN_SHAPES = {"zamba2": (4, 2048), "rwkv6": (4, 2048),
                 "deepseek": (2, 1024), "whisper": (4, 448)}
+# zamba2's profiled step runs on the first 3 of its 9 pattern repeats: the
+# profiler's host work grows with the ops a step runs (the plain VJPs'
+# small ops: 142 s of host time whole on the H100's host), and the
+# script's time limit holds every phase after it
+PROFILE_REPEATS = 3
 TINY_STEPS = 200
 
 
@@ -2716,9 +2749,17 @@ def _train_zamba2(card: str, tmp: str):
     params, opt = out["params"], out["opt"]
     del tr, out
     free_cuda()
-    _profiled_step("zamba2-2.7b", cfg, params, opt, batch, card)
+    (g,) = cfg.groups
+    cut = cfg.scaled(groups=(dataclasses.replace(g, repeats=PROFILE_REPEATS),))
+    first = lambda tree: {**tree, "groups": tree_map(
+        lambda t: t[:PROFILE_REPEATS], tree["groups"])}
+    t0 = time.monotonic()
+    _profiled_step(f"zamba2-2.7b ({PROFILE_REPEATS} of {g.repeats} pattern "
+                   f"repeats)", cut, first(params),
+                   opt._replace(m=first(opt.m), v=first(opt.v)), batch, card)
     del opt
     free_cuda()
+    log(f"time: train zamba2 profiled step {time.monotonic() - t0:.1f} s")
     _step_delta("zamba2-2.7b", cfg, params, batch, card)
     del params, batch
     free_cuda()
@@ -2863,7 +2904,8 @@ TRAIN_VJP_SHAPES = {
 
 # SDPA's backward beside the plain VJP, at the callers' shapes whose
 # forward SDPA computes (no window, no softcap)
-SDPA_BWD_SHAPES = ("zamba2 attention", "deepseek MLA", "whisper encoder",
+SDPA_BWD_SHAPES = ("zamba2 attention", "deepseek MLA",
+                   "deepseek MTP attention", "whisper encoder",
                    "whisper self", "whisper cross")
 
 
@@ -2943,15 +2985,26 @@ def phase_train(card: str):
     """The training slice on the card.  Returns the flash and scan
     launches of the zamba2 trainer run (the slice's main path)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    t0 = time.monotonic()
+
+    def done(what: str) -> None:
+        log(f"time: train {what} at {time.monotonic() - t0:.1f} s into the "
+            f"phase")
     try:
         launches = _train_zamba2(card, tmp)
+        done("zamba2")
         _train_rwkv6(card, tmp)
+        done("rwkv6")
         _train_deepseek(card, tmp)
+        done("deepseek")
         _train_whisper(card, tmp)
+        done("whisper")
         _train_tiny(card, tmp)
+        done("tiny-lm")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _vjp_times(card)
+    done("VJP times")
     return launches
 
 
@@ -2977,6 +3030,12 @@ PIPE_ATOL = 1e-4
 DRYRUN_CELLS = (("rwkv6_1p6b", "decode_32k", False),
                 ("whisper_small", "prefill_32k", True),
                 ("gemma2_27b", "long_500k", False))
+# the reference's dry-run of the same cells, FLOPs a device: counts of
+# work, from `python -m repro.launch.dryrun` run on a CPU with jax.make_mesh
+# defaulting to Auto axes (tests/test_torch_dryrun_parity.py's wrapper),
+# not a time on any chip; gemma2 long_500k is a skip in both packages
+REF_DRYRUN_FLOPS = {("rwkv6_1p6b", "decode_32k", False): 1452277760.0,
+                    ("whisper_small", "prefill_32k", True): 3554671337472.0}
 DRYRUN_TIMEOUT_S = 600.0
 
 
@@ -3096,6 +3155,52 @@ class _EPPin:
             yield self
         finally:
             moe_mod._top_k = real
+
+
+class _RoutePin:
+    """The unsharded f32 decode step's expert choices (each MoE layer's
+    router top-k, (T, k)), recorded there and replayed in the other decode
+    steps, as _EPPin does for the train step.  Without expert parallelism
+    every rank routes the whole batch, so each layer's call gets the whole
+    recorded choice back; the router's top-k is told from the capacity's
+    (C = T = top_k at B = 8) by its last dim, the experts'.  ``flips``
+    counts the token-layers whose own choice differed."""
+
+    def __init__(self, cfg):
+        self.k, self.E = cfg.moe.top_k, cfg.moe.n_experts
+        self.rec, self.flips = [], 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        real = moe_mod._top_k
+
+        def top_k(x, k):
+            if k != self.k or x.shape[-1] != self.E:
+                return real(x, k)
+            return fn(real, x, k)
+        moe_mod._top_k = top_k
+        try:
+            yield self
+        finally:
+            moe_mod._top_k = real
+
+    def record(self):
+        def fn(real, x, k):
+            v, i = real(x, k)
+            self.rec.append(i)
+            return v, i
+        return self._patched(fn)
+
+    def replay(self):
+        at = [0]
+
+        def fn(real, x, k):
+            own, idx = real(x, k)[1], self.rec[at[0]].to(x.device)
+            at[0] += 1
+            self.flips += int((torch.sort(own, -1).values
+                               != torch.sort(idx, -1).values).any(-1).sum())
+            return x.gather(-1, idx), idx
+        return self._patched(fn)
 
 
 def _compare_sharded(rank, mesh, dp, batch, cfg, ref,
@@ -3271,6 +3376,117 @@ def _dist_olmoe(rank: int, failed: list) -> dict:
     if not all(math.isfinite(x) for x in losses):
         failed.append(f"dist olmoe bf16 steps: losses {losses}")
     del dp16, opt, db
+    free_cuda()
+    return out
+
+
+def _dist_olmoe_decode(rank: int, failed: list) -> dict:
+    """olmoe-1b-7b cut to 2 layers on (data=2, model=4): one decode step at
+    B = 8 after a 64-token prefill, laid out as decode is -- no expert
+    parallelism (S = 1 does not divide ``model``): every rank routes the
+    whole batch and runs its own 16 experts on the weights where they lie,
+    and every matrix of the step is used where it lies -- against the same
+    step unsharded (rank 0; its prefill's cache handed to every rank).
+    f32 logits within DIST_LOSS_TOL relative; bf16 within max(SLICE_TOL,
+    2 x the unsharded bf16 step's own distance from f32); every step under
+    the unsharded f32 step's routing; the token's K and V, written into
+    the cache shard by shard, against the unsharded step's."""
+    full = olmoe_1b_7b.CONFIG
+    base = full.scaled(groups=(dataclasses.replace(full.groups[0],
+                                                   repeats=2),))
+    B, S0 = 8, 64
+    mesh = make_host_mesh((2, 4), ("data", "model"))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = init_params(base, gen, device=DEV)
+    dp16 = sh.tree_distribute(mesh, params, params_logical_axes(base))
+    if rank != 0:
+        del params
+        free_cuda()
+    toks = _pipeline_batch(base, B, S0 + 1, SEED + 24)["tokens"]
+    if rank == 0:
+        log(f"model: {base.name} layers={base.n_layers} (cut: "
+            f"{full.n_layers} -> {base.n_layers} layers; full width; mesh "
+            f"data=2 x model=4, decode: no EP, the weights where they lie; "
+            f"one decode step at B={B} after a {S0}-token prefill)")
+    pin = _RoutePin(base)
+    ref32, out = None, {}
+    for dtype in ("float32", "bfloat16"):
+        c = base.scaled(dtype=dtype)
+        f32 = dtype == "float32"
+        ref = None
+        if rank == 0:
+            p = _f32(params) if f32 else params
+            _, pc, _ = apply_model(p, toks[:, :S0], cfg=c, mode="prefill")
+            cache = _graft(c, pc, B, S0 + 1)
+            del pc
+            cu = tree_map(torch.clone, cache)
+            with pin.record() if f32 else pin.replay():
+                lg, cu, _ = apply_model(p, toks[:, S0:], cfg=c,
+                                        mode="decode", cache=cu)
+            kv = cu["groups"]["g0"]["p0"]
+            ref = (lg[:, 0, :base.vocab].float(),
+                   {n: kv[n][:, :, S0].float() for n in ("k", "v")})
+            del p, cu, lg
+        else:
+            cache = init_cache(c, B, S0 + 1, c.dtype, device=DEV)
+        for leaf in tree_leaves(cache):
+            dist.broadcast(leaf, 0)
+        if f32:         # the unsharded step's choices to every rank
+            rec = torch.stack(pin.rec) if rank == 0 else torch.empty(
+                (base.n_layers, B, base.moe.top_k), dtype=torch.long,
+                device=DEV)
+            dist.broadcast(rec, 0)
+            pin.rec = list(rec)
+        pin.flips = 0
+        sh.set_mesh(mesh)
+        try:
+            dc = sh.tree_distribute(mesh, cache, model_mod.cache_axes(c))
+            dtok = sh.distribute(toks[:, S0:], mesh, sh.batch_spec(mesh))
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with pin.replay():
+                lg, dc, _ = apply_model(_f32(dp16) if f32 else dp16, dtok,
+                                        cfg=c, mode="decode", cache=dc)
+            torch.cuda.synchronize()
+            t_s = 1e3 * (time.monotonic() - t0)
+            lg = sh.full(lg)[:, 0, :base.vocab].float()
+            kv = {n: sh.full(dc["groups"]["g0"]["p0"][n])[:, :, S0].float()
+                  for n in ("k", "v")}
+        finally:
+            sh.set_mesh(None)
+        del cache, dc
+        flips = torch.tensor([pin.flips], device=DEV)
+        dist.all_reduce(flips)
+        if rank == 0:
+            if f32:
+                tol, lim = DIST_LOSS_TOL, f"tol {DIST_LOSS_TOL:g}"
+                ref32 = ref
+            else:
+                e = _rel(ref[0], ref32[0])
+                tol = max(SLICE_TOL, 2 * e)
+                lim = (f"tol max({SLICE_TOL:g}, 2 x the unsharded bf16 "
+                       f"step's own distance from f32, {e:.3e})")
+            e_lg = _rel(lg, ref[0])
+            e_kv = max(_rel(kv[n], ref[1][n]) for n in ("k", "v"))
+            ok = (bool(torch.isfinite(lg).all()) and e_lg <= tol
+                  and e_kv <= tol)
+            T = base.n_layers * B
+            log(f"dist olmoe decode {dtype}: logits {tuple(lg.shape)} "
+                f"sharded vs unsharded rel {e_lg:.3e}, the token's K/V in "
+                f"the cache rel {e_kv:.3e} ({lim}); the unsharded f32 "
+                f"step's routing replayed (each rank's own choice differed "
+                f"at {int(flips)} of {T} token-layers, summed over the "
+                f"{DIST_RANKS} ranks); sharded step {t_s:.0f} ms (host "
+                f"clock, {DIST_RANKS} ranks on one card): {ok}")
+            if not ok:
+                failed.append(f"dist olmoe decode {dtype}: sharded vs "
+                              f"unsharded")
+            out[dtype] = {"logits_rel": e_lg, "kv_rel": e_kv, "ms": t_s}
+        del lg, kv, ref
+        free_cuda()
+    if rank == 0:
+        del params
+    del dp16, ref32
     free_cuda()
     return out
 
@@ -3457,6 +3673,7 @@ def _dist_rank(rank: int, world: int, init: str, out_dir: str) -> None:
     res: dict = {}
     try:
         res["olmoe"] = _dist_olmoe(rank, failed)
+        res["olmoe_decode"] = _dist_olmoe_decode(rank, failed)
         res["cp"] = _dist_cp(rank, failed)
         res["compression"] = _dist_compression(rank, failed)
         res["pipeline"] = _dist_pipeline(rank, failed)
@@ -3505,13 +3722,16 @@ def _finish_dryruns(procs, out_dir: str, deadline: float) -> None:
                 f": {ok}")
         else:
             r = cell.get("roofline", {})
+            flops = r.get("flops_per_device", 0)
+            want = REF_DRYRUN_FLOPS[(arch, shape, multi)]
             ok = (p.returncode == 0 and cell.get("status") == "ok"
                   and cell.get("n_devices") == (512 if multi else 256)
                   and r.get("flops_per_device", 0) > 0 and r.get("bottleneck")
                   in ("compute", "memory", "collective"))
             log(f"dryrun {arch} x {shape} ({'multi' if multi else 'single'}"
                 f"-pod, {cell.get('n_devices')} devices): {said[0] if said else ''}"
-                f"; per device {r.get('flops_per_device', 0):.4e} FLOPs, "
+                f"; per device {flops:.4e} FLOPs (the reference's dry-run "
+                f"{want:.4e}, a CPU count: {flops / want:.3f}x), "
                 f"{r.get('hbm_bytes_per_device', 0):.4e} bytes, collectives "
                 f"{r.get('collective_bytes_per_device', 0):.4e} bytes "
                 f"{ {k: f'{v:.3e}' for k, v in r.get('collective_by_kind', {}).items()} }; "

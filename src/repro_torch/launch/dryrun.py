@@ -67,10 +67,9 @@ def _alltoall_kept():
     from torch.distributed.tensor import placement_types as pt
 
     def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
-        group = cu.funcol._resolve_group((mesh, mesh_dim))
         return torch.ops._dtensor.shard_dim_alltoall(
             input, gather_dim, shard_dim,
-            cu.funcol._group_or_group_name(group))
+            cu.funcol._resolve_group_name((mesh, mesh_dim)))
 
     was = pt.shard_dim_alltoall
     pt.shard_dim_alltoall = alltoall
@@ -182,7 +181,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         mem["per_device_total_gib"] = round(total / 2**30, 3)
         meta.update({"status": "ok", "step_s": round(time.time() - t0, 1),
                      "memory": mem, "roofline": rl.as_dict(),
-                     "kernels": st.kernels, "ops": st.n_ops})
+                     "kernels": st.kernels,
+                     "top_products": st.top_products(), "ops": st.n_ops})
         print(f"[dryrun] {arch} x {shape_name} ({mesh_name}): OK "
               f"trace={time.time() - t0:.0f}s mem={total / 2**30:.2f}GiB "
               f"bottleneck={rl.bottleneck} "

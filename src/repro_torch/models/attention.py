@@ -20,8 +20,10 @@ Cache layouts (all batch-major, stacked over layer repeats by the caller):
 Decode writes the new token INTO the stacked cache tensors, in place; the
 reference returns new arrays instead.  Under a mesh (``parallel/
 sharding.py``) the flash kernel runs per rank on local shards, heads over
-``model`` or, where the heads do not divide it, the query sequence
-(context parallelism): :func:`_flash`.
+``model`` (:func:`_flash`) or, where the heads do not divide it, the
+sequence, the projections around the kernel included (context
+parallelism: :func:`_attn_seq`); decode attends on each rank's shard of
+the cache (:func:`_decode`, :func:`_latent_attend`).
 """
 
 from __future__ import annotations
@@ -34,12 +36,27 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Spec, apply_rope, rms_norm
+from repro_torch.models.layers import Spec, apply_rope, linear, rms_norm
 from repro_torch.parallel import sharding as shlib
 
 def _tp_size(mesh) -> int:
     return (shlib.axis_size(mesh, "model")
             if mesh is not None and "model" in shlib.axis_names(mesh) else 1)
+
+
+def _head_layout(mesh, H: int, Hkv: int) -> str:
+    """How a mesh's ``model`` axis splits attention in train and prefill:
+    ``"heads"`` when it divides the heads and the kv heads; ``"groups"``
+    when it divides the heads and each rank's heads share one kv head
+    (stablelm's 32 / 8, llama-vision's 64 / 8 over 16): the queries split
+    by head, the kv heads whole on every rank; else ``"seq"`` (starcoder2's
+    36 heads, whisper's 12): each rank takes a slice of the sequence."""
+    tp = _tp_size(mesh)
+    if tp == 1 or (H % tp == 0 and Hkv % tp == 0):
+        return "heads"
+    if H % tp == 0 and (H // Hkv) % (H // tp) == 0:
+        return "groups"
+    return "seq"
 
 
 def _flash(q, k, v, *, causal, window, softcap_v, scale, impl=None):
@@ -48,70 +65,242 @@ def _flash(q, k, v, *, causal, window, softcap_v, scale, impl=None):
     Under a mesh (DTensor q, k, v) every rank runs the kernel on its local
     shards, through ``local_map``: a kernel never sees a DTensor.  Batch
     goes over the FSDP axes and heads over ``model`` when the head counts
-    divide it.  When they do not (starcoder2: 36H, whisper: 12H) the heads
-    stay replicated, and each ``model`` rank takes a slice of the QUERY
-    sequence instead (context parallelism, the reference's ``shard_map``
-    branch): q padded to a multiple of tp, K and V replicated over
-    ``model`` (no extra communication), the causal mask offset by the
-    shard's position (the kernel's ``q_offset``), the pad cut after."""
+    divide it.  When the heads divide it but the kv heads do not, the K/V
+    come whole over ``model`` and each rank takes the kv head its query
+    heads share.  Where the heads do not divide it, each rank takes a
+    slice of the query sequence (:func:`_flash_seq`; :func:`_attn_seq`
+    slices the products around it too)."""
     mesh = shlib.get_mesh()
     kw = dict(causal=causal, window=window, softcap=softcap_v, scale=scale,
               impl=impl)
     if mesh is None or not shlib.is_dtensor(q):
         return kops.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), **kw)
-    tp = _tp_size(mesh)
     H, Hkv = q.shape[2], k.shape[2]
-
+    layout = _head_layout(mesh, H, Hkv)
+    if layout == "seq":
+        S = q.shape[1]
+        rep, seq = _seq_layouts(mesh, q.shape[0])
+        q = _pad_seq(q, _tp_size(mesh), rep)
+        out = _flash_seq(q, k, v, s_local=q.shape[1] // _tp_size(mesh),
+                         rep=rep, seq=seq, **kw).redistribute(mesh, rep)
+        return out[:, :S] if out.shape[1] != S else out
     pl = lambda dims, t: shlib.layout(mesh, dims, t)
-
-    def kernel(qs, ks, vs, q_offset=0):
-        return kops.flash_attention(qs.contiguous(), ks.contiguous(),
-                                    vs.contiguous(), q_offset=q_offset, **kw)
-
-    if tp == 1 or (H % tp == 0 and Hkv % tp == 0):
-        qpl = pl(("batch", None, "heads", None), q)
-        return shlib.local_map(kernel, qpl, (qpl, pl(("batch", None, "kv_heads",
-                                                 None), k),
-                                        pl(("batch", None, "kv_heads", None),
-                                           v)))(q, k, v)
-
-    B, S = q.shape[0], q.shape[1]
-    pad = (-S) % tp
-    Sp = S + pad
-    s_local = Sp // tp
-    bspec = shlib.spec_for(mesh, ("batch",), (B,))
-    b = bspec[0] if bspec else None
-    rep = list(shlib.placements(mesh, (b,)))
-    cp = list(shlib.placements(mesh, (b, "model")))
-    if pad:
-        q = shlib.local_map(lambda qs: F.pad(qs, (0, 0, 0, 0, 0, pad)), rep,
-                       (rep,))(q)
+    qpl = pl(("batch", None, "heads", None), q)
+    if layout == "heads":
+        kvpl = pl(("batch", None, "kv_heads", None), k)
+        return shlib.local_map(
+            lambda qs, ks, vs: kops.flash_attention(
+                qs.contiguous(), ks.contiguous(), vs.contiguous(), **kw),
+            qpl, (qpl, kvpl, kvpl))(q, k, v)
+    # "groups": H/tp query heads a rank, all of one kv head
+    kvpl = pl(("batch", None, None, None), k)
+    g0 = mesh.get_local_rank("model") * (H // _tp_size(mesh)) // (H // Hkv)
 
     def body(qs, ks, vs):
-        return kernel(qs, ks, vs,
-                      q_offset=mesh.get_local_rank("model") * s_local)
-
-    kv_grad = shlib.partial_over(rep, cp)     # each shard's own queries
-    out = shlib.local_map(body, cp, (cp, rep, rep),
-                          (cp, kv_grad, kv_grad))(q, k, v)
-    # the sequence whole again for the output projection (heads are not
-    # sharded here): one all-gather over model
-    out = out.redistribute(mesh, rep)
-    return out[:, :S] if pad else out
+        return kops.flash_attention(qs.contiguous(),
+                                    ks[:, :, g0:g0 + 1].contiguous(),
+                                    vs[:, :, g0:g0 + 1].contiguous(), **kw)
+    kv_grad = shlib.partial_over(kvpl, qpl)    # each rank's own kv head
+    return shlib.local_map(body, qpl, (qpl, kvpl, kvpl),
+                           (qpl, kv_grad, kv_grad))(q, k, v)
 
 
-def _decode(q, k, v, kv_len, **kw):
+def _seq_layouts(mesh, B: int):
+    """The stream's layout (batch over the FSDP axes, whole over
+    ``model``) and the same with the sequence over ``model``."""
+    bspec = shlib.spec_for(mesh, ("batch",), (B,))
+    b = bspec[0] if bspec else None
+    return (list(shlib.placements(mesh, (b,))),
+            list(shlib.placements(mesh, (b, "model"))))
+
+
+def _pad_seq(x, tp: int, rep):
+    """``x`` (B, S, ...) padded at the end of its sequence to a multiple of
+    ``tp`` (a no-op when it is one)."""
+    pad = (-x.shape[1]) % tp
+    if not pad:
+        return x
+    widths = (0, 0) * (x.dim() - 2) + (0, pad)
+    return shlib.local_map(lambda t: F.pad(t, widths), rep, (rep,))(x)
+
+
+def _kv_on_slices(src, p, *, cfg, rope: bool):
+    """K and V of ``src`` (B, T, D), projected by each ``model`` rank on its
+    slice of the T positions (k normed and rotated there, at the slice's
+    own positions) and gathered whole over ``model``: (B, T, Hkv, hd)
+    each, laid out as the stream is.  The kv weights are whole over
+    ``model`` here, so every rank would otherwise project all of T."""
+    mesh = shlib.get_mesh()
+    tp = _tp_size(mesh)
+    B, T, _ = src.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    rep, seq = _seq_layouts(mesh, B)
+    srcp = _pad_seq(src, tp, rep)
+    t_local = srcp.shape[1] // tp
+    off = mesh.get_local_rank("model") * t_local
+    wrep = list(shlib.placements(mesh, ()))
+    names = ["wk", "wv"] + (["k_scale"] if cfg.qk_norm else [])
+
+    def proj(xs, wk, wv, k_scale=None):
+        Bl, Tl, _ = xs.shape
+        k = linear(xs, wk.flatten(1)).view(Bl, Tl, Hkv, hd)
+        v = linear(xs, wv.flatten(1)).view(Bl, Tl, Hkv, hd)
+        if k_scale is not None:
+            k = rms_norm(k, k_scale, cfg.norm_eps)
+        if rope:
+            positions = torch.arange(Tl, device=xs.device)[None] + off
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+        return k, v
+
+    ins = (seq,) + (wrep,) * len(names)
+    grads = (seq,) + tuple(shlib.partial_over(w, seq) for w in ins[1:])
+    k, v = shlib.local_map(proj, (seq, seq), ins, grads)(
+        srcp, *(p[n] for n in names))
+    k, v = k.redistribute(mesh, rep), v.redistribute(mesh, rep)
+    if srcp.shape[1] != T:
+        k, v = k[:, :T], v[:, :T]
+    return k, v
+
+
+def _flash_seq(q, k, v, *, s_local, rep, seq, **kw):
+    """The flash kernel on each ``model`` rank's slice of the query
+    sequence (``q`` laid out as ``seq``, K and V whole over ``model``):
+    the causal mask offset by the slice's position (the kernel's
+    ``q_offset``)."""
+    mesh = shlib.get_mesh()
+
+    def body(qs, ks, vs):
+        return kops.flash_attention(
+            qs.contiguous(), ks.contiguous(), vs.contiguous(),
+            q_offset=mesh.get_local_rank("model") * s_local, **kw)
+
+    kv_grad = shlib.partial_over(rep, seq)     # each slice's own queries
+    return shlib.local_map(body, seq, (seq, rep, rep),
+                           (seq, kv_grad, kv_grad))(q, k, v)
+
+
+def _attn_seq(p, x, kv_source, *, cfg, kind, mode, causal, window, scale,
+              impl):
+    """Train / prefill attention where ``model`` does not divide the heads
+    (context parallelism, the reference's ``shard_map`` branch and the
+    sequence sharding GSPMD carries into the products around it): each
+    ``model`` rank projects its slice of the sequence to q (normed and
+    rotated at the slice's positions), runs the flash kernel on it against
+    K and V projected on slices and gathered (:func:`_kv_on_slices`), and
+    projects its slice of the output; the slices are gathered once, after
+    the output projection, and the pad cut.  Returns (o, new_cache)."""
+    mesh = shlib.get_mesh()
+    tp = _tp_size(mesh)
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim_
+    rep, seq = _seq_layouts(mesh, B)
+    xp = _pad_seq(x, tp, rep)
+    s_local = xp.shape[1] // tp
+    off = mesh.get_local_rank("model") * s_local
+    wrep = list(shlib.placements(mesh, ()))
+    cross = kind == "cross"
+    qn = ["wq"] + (["q_scale"] if cfg.qk_norm else [])
+
+    def proj_q(xs, wq, q_scale=None):
+        Bl, Sl, _ = xs.shape
+        q = linear(xs, wq.flatten(1)).view(Bl, Sl, H, hd)
+        if q_scale is not None:
+            q = rms_norm(q, q_scale, cfg.norm_eps)
+        if not cross:
+            positions = torch.arange(Sl, device=xs.device)[None] + off
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+        return q
+
+    ins = (seq,) + (wrep,) * len(qn)
+    q = shlib.local_map(proj_q, seq, ins, (seq,) + tuple(
+        shlib.partial_over(w, seq) for w in ins[1:]))(xp, *(p[n] for n in qn))
+    k, v = _kv_on_slices(kv_source if cross else x, p, cfg=cfg,
+                         rope=not cross)
+    out = _flash_seq(q, k, v, s_local=s_local, rep=rep, seq=seq,
+                     causal=False if cross else causal,
+                     window=0 if cross else window,
+                     softcap=cfg.attn_softcap, scale=scale, impl=impl)
+
+    def proj_o(os_, wo):
+        Bl, Sl = os_.shape[:2]
+        return linear(os_.reshape(Bl, Sl, H * hd), wo.flatten(0, 1))
+
+    o = shlib.local_map(proj_o, seq, (seq, wrep),
+                        (seq, shlib.partial_over(wrep, seq)))(out, p["wo"])
+    o = o.redistribute(mesh, rep)
+    if o.shape[1] != S:
+        o = o[:, :S]
+    return o, ({"k": k, "v": v} if mode == "prefill" else None)
+
+
+def _softmax_over(s, groups):
+    """``softmax(s, -1)`` in f32 where the last dim is split over the ranks
+    of ``groups`` (each rank holds its slice): the max and the sum taken
+    over the slices, one all-reduce each of a tensor without that dim;
+    plain ``torch.softmax`` with no groups."""
+    if not groups:
+        return torch.softmax(s, dim=-1)
+    m = shlib.all_reduce(s.amax(-1, keepdim=True), "max", groups)
+    e = torch.exp(s - m)
+    return e / shlib.all_reduce(e.sum(-1, keepdim=True), "sum", groups)
+
+
+def _decode_layout(cache, heads: bool):
+    """The layouts of a decode attention's local_map over a DTensor cache
+    (B, S, ...): the cache's own; the query's (batch as the cache's, and
+    with ``heads`` its heads split where the cache splits its kv heads,
+    dim 2) and per-row tensors'; the chunk index and groups of the cache's
+    sequence slices."""
+    from torch.distributed.tensor import Replicate, Shard
+    cpl = list(cache.placements)
+    keep = {0, 2} if heads else {0}
+    qpl = [p if isinstance(p, Shard) and p.dim in keep else Replicate()
+           for p in cpl]
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in cpl]
+    t_idx, groups = shlib.shard_index(cache.device_mesh, cpl, 1)
+    return cpl, qpl, rows, t_idx, groups
+
+
+def _decode(q, k, v, kv_len, *, window=0, softcap=0.0, scale=None):
     """Decode attention of one query token over a KV cache.  Under a mesh
-    whose ``model`` axis divides the heads but not the kv heads, the
-    cache's ``kv_seq`` holds ``model`` and the query's heads cannot be
-    grouped over the kv heads shard by shard: the query (one token) is
-    read whole over ``model``, as it is where the heads do not divide, and
-    the cache stays sharded over its sequence."""
-    tp = _tp_size(shlib.get_mesh())
-    if tp > 1 and shlib.is_dtensor(q) and k.shape[2] % tp:
-        q = shlib.constrain(q, ("batch", None, None, None))
-    return kops.decode_attention(q, k, v, kv_len, **kw)
+    (a DTensor cache) each rank attends on its local shards through
+    ``local_map``: the batch as the cache's, the query's heads split where
+    the cache splits its kv heads (whole where it does not).  Where the
+    cache's sequence holds a mesh axis (the kv heads do not divide
+    ``model``), each rank scores its slice of the cache and the softmax
+    and the output are combined over the slices (:func:`_softmax_over`,
+    then one all-reduce of the (B, H, Dv) partial output) instead of the
+    cache being gathered."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if not shlib.is_dtensor(k):
+        return kops.decode_attention(q, k, v, kv_len, **kw)
+    cpl, qpl, rows, t_idx, groups = _decode_layout(k, heads=True)
+    if not shlib.is_dtensor(kv_len):
+        kv_len = shlib.replicated_like(kv_len, k)
+
+    def body(ql, kl, vl, nl):
+        if not groups:
+            return kops.decode_attention(ql, kl, vl, nl, **kw)
+        B, _, H, D = ql.shape
+        Sl, Hkv = kl.shape[1], kl.shape[2]
+        qr = ql.reshape(B, Hkv, H // Hkv, D).float()
+        sc = (torch.einsum("bhgd,bshd->bhgs", qr, kl.float())
+              * (scale if scale is not None else 1.0 / math.sqrt(D)))
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        at = torch.arange(Sl, device=ql.device)[None] + t_idx * Sl
+        mask = at < nl[:, None]
+        if window:
+            mask = mask & (at > nl[:, None] - 1 - window)
+        sc = sc.masked_fill(~mask[:, None, None], -1e30)
+        pr = _softmax_over(sc, groups).to(vl.dtype).float()
+        out = shlib.all_reduce(
+            torch.einsum("bhgs,bshd->bhgd", pr, vl.float()), "sum", groups)
+        return out.reshape(B, 1, H, vl.shape[3]).to(ql.dtype)
+
+    return shlib.local_map(body, qpl, (qpl, cpl, cpl, rows))(q, k, v, kv_len)
 
 
 def _cache_read(arr, idx):
@@ -231,11 +420,16 @@ def apply_attn(
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     window = cfg.window if kind == "local" else 0
     scale = _attn_scale(cfg, hd)
-    dt = x.dtype
+    mesh = shlib.get_mesh()
+    layout = ("heads" if mode == "decode" or mesh is None
+              or not shlib.is_dtensor(x) else _head_layout(mesh, H, Hkv))
+    if layout == "seq":
+        return _attn_seq(p, x, kv_source, cfg=cfg, kind=kind, mode=mode,
+                         causal=causal, window=window, scale=scale, impl=impl)
 
     # plain products on views of the (D, heads, hd) weights, cast to the
     # compute dtype as jnp's type promotion does
-    q = (x @ p["wq"].to(dt).flatten(1)).view(B, S, H, hd)
+    q = linear(x, p["wq"].flatten(1)).view(B, S, H, hd)
     if kind == "cross":
         if mode == "decode":
             # K/V were projected (and k normed) at prefill: norm q only
@@ -249,20 +443,35 @@ def apply_attn(
                           scale=scale)
             new_cache = cache
         else:
-            T = kv_source.shape[1]
-            k = (kv_source @ p["wk"].to(dt).flatten(1)).view(B, T, Hkv, hd)
-            v = (kv_source @ p["wv"].to(dt).flatten(1)).view(B, T, Hkv, hd)
+            if layout == "groups":
+                k, v = _kv_on_slices(kv_source, p, cfg=cfg, rope=False)
+            else:
+                T = kv_source.shape[1]
+                k = linear(kv_source, p["wk"].flatten(1)).view(B, T, Hkv, hd)
+                v = linear(kv_source, p["wv"].flatten(1)).view(B, T, Hkv, hd)
+                if cfg.qk_norm:
+                    k = rms_norm(k, p["k_scale"], cfg.norm_eps)
             if cfg.qk_norm:
                 q = rms_norm(q, p["q_scale"], cfg.norm_eps)
-                k = rms_norm(k, p["k_scale"], cfg.norm_eps)
             out = _flash(q, k, v, causal=False, window=0,
                          softcap_v=cfg.attn_softcap, scale=scale, impl=impl)
             new_cache = {"k": k, "v": v} if mode == "prefill" else None
-        o = out.reshape(B, S, H * hd) @ p["wo"].to(dt).flatten(0, 1)
+        o = linear(out.reshape(B, S, H * hd), p["wo"].flatten(0, 1))
         return o, new_cache
 
-    k = (x @ p["wk"].to(dt).flatten(1)).view(B, S, Hkv, hd)
-    v = (x @ p["wv"].to(dt).flatten(1)).view(B, S, Hkv, hd)
+    if layout == "groups":
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_scale"], cfg.norm_eps)
+        q = apply_rope(q, torch.arange(S, device=x.device)[None],
+                       cfg.rope_theta, cfg.rope_pct)
+        k, v = _kv_on_slices(x, p, cfg=cfg, rope=True)
+        out = _flash(q, k, v, causal=causal, window=window,
+                     softcap_v=cfg.attn_softcap, scale=scale, impl=impl)
+        o = linear(out.reshape(B, S, H * hd), p["wo"].flatten(0, 1))
+        return o, ({"k": k, "v": v} if mode == "prefill" else None)
+
+    k = linear(x, p["wk"].flatten(1)).view(B, S, Hkv, hd)
+    v = linear(x, p["wv"].flatten(1)).view(B, S, Hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_scale"], cfg.norm_eps)
@@ -284,8 +493,49 @@ def apply_attn(
         out = _flash(q, k, v, causal=causal, window=window,
                      softcap_v=cfg.attn_softcap, scale=scale, impl=impl)
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
-    o = out.reshape(B, S, H * hd) @ p["wo"].to(dt).flatten(0, 1)
+    o = linear(out.reshape(B, S, H * hd), p["wo"].flatten(0, 1))
     return o, new_cache
+
+
+def _latent_scores(q_lat, q_rope, ckv, krope, pos, scale, t0=0):
+    """MLA's absorbed scores of the latent queries over the compressed
+    cache (positions ``t0 ..`` of it), the positions past ``pos`` masked."""
+    s = (torch.einsum("bshr,btr->bhst", q_lat, ckv) +
+         torch.einsum("bshe,bte->bhst", q_rope, krope)) * scale
+    t_idx = torch.arange(ckv.shape[1], device=q_lat.device)[None] + t0
+    mask = t_idx <= pos[:, None].to(q_lat.device)
+    return s.masked_fill(~mask[:, None, None], -1e30)
+
+
+def _latent_attend(q_lat, q_rope, ckv, krope, pos, scale):
+    """MLA's absorbed decode attention: (B, 1, H, r) context vectors in
+    the latent space, f32 only inside the softmax (the reference's order
+    of products).  Under a mesh (a DTensor cache) each rank attends on its
+    local shards through ``local_map``; where the cache's sequence holds a
+    mesh axis (``kv_seq`` over ``model``), each rank scores its slice and
+    the softmax and the context are combined over the slices, in f32
+    (:func:`_softmax_over`, then one all-reduce of the (B, H, r) partial
+    context), instead of the cache being gathered -- the reference's
+    GSPMD keeps the cache where it lies too."""
+    dt = q_lat.dtype
+    if not shlib.is_dtensor(ckv):
+        pr = torch.softmax(_latent_scores(q_lat, q_rope, ckv, krope, pos,
+                                          scale).float(), dim=-1).to(dt)
+        return torch.einsum("bhst,btr->bshr", pr, ckv)
+    cpl, qpl, rows, t_idx, groups = _decode_layout(ckv, heads=False)
+    if not shlib.is_dtensor(pos):
+        pos = shlib.replicated_like(pos, ckv)
+
+    def body(ql, qr, c, kr, ps):
+        s = _latent_scores(ql, qr, c, kr, ps, scale, t0=t_idx * c.shape[1])
+        pr = _softmax_over(s.float(), groups).to(dt)
+        if not groups:
+            return torch.einsum("bhst,btr->bshr", pr, c)
+        ctx = torch.einsum("bhst,btr->bshr", pr.float(), c.float())
+        return shlib.all_reduce(ctx, "sum", groups).to(dt)
+
+    return shlib.local_map(body, qpl, (qpl, qpl, cpl, cpl, rows))(
+        q_lat, q_rope, ckv, krope, pos)
 
 
 def _apply_mla(p, x, *, cfg, mode, cache, pos, layer_idx=None, impl=None):
@@ -308,11 +558,11 @@ def _apply_mla(p, x, *, cfg, mode, cache, pos, layer_idx=None, impl=None):
     w = {k: v.to(dt) for k, v in p.items()
          if k in ("wq_a", "wq_b", "wkv_a", "wk_b", "wv_b", "wo")}
 
-    ql = rms_norm(x @ w["wq_a"], p["q_norm"], cfg.norm_eps)
+    ql = rms_norm(linear(x, w["wq_a"]), p["q_norm"], cfg.norm_eps)
     q = (ql @ w["wq_b"].flatten(1)).view(B, S, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
-    kv_a = x @ w["wkv_a"]                              # (B,S,r_kv+rope)
+    kv_a = linear(x, w["wkv_a"])                       # (B,S,r_kv+rope)
     ckv = rms_norm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
     k_rope = kv_a[..., r:]                             # (B,S,rope) shared head
 
@@ -328,15 +578,9 @@ def _apply_mla(p, x, *, cfg, mode, cache, pos, layer_idx=None, impl=None):
         krope_c = _cache_read(krope_full, layer_idx).to(dt)
         # absorbed: q_lat = q_nope wk_b^T scores the compressed cache
         q_lat = torch.einsum("bshe,rhe->bshr", q_nope, w["wk_b"])  # (B,1,H,r)
-        s = (torch.einsum("bshr,btr->bhst", q_lat, ckv_c) +
-             torch.einsum("bshe,bte->bhst", q_rope, krope_c)) * scale
-        t_idx = torch.arange(ckv_c.shape[1], device=x.device)[None]
-        mask = t_idx <= pos[:, None].to(x.device)
-        s = s.masked_fill(~mask[:, None, None], -1e30)
-        pr = torch.softmax(s.float(), dim=-1).to(dt)
-        ctx = torch.einsum("bhst,btr->bshr", pr, ckv_c)          # (B,1,H,r)
+        ctx = _latent_attend(q_lat, q_rope, ckv_c, krope_c, pos, scale)
         out = torch.einsum("bshr,rhe->bshe", ctx, w["wv_b"])     # (B,1,H,vd)
-        o = out.reshape(B, S, H * vd) @ w["wo"].flatten(0, 1)
+        o = linear(out.reshape(B, S, H * vd), w["wo"].flatten(0, 1))
         return o, {"ckv": ckv_full, "k_rope": krope_full}
 
     positions = torch.arange(S, device=x.device)[None]
@@ -348,6 +592,6 @@ def _apply_mla(p, x, *, cfg, mode, cache, pos, layer_idx=None, impl=None):
     qf = torch.cat([q_nope, q_rope], dim=-1)
     out = _flash(qf, k, v, causal=True, window=0, softcap_v=0.0, scale=scale,
                  impl=impl)
-    o = out.reshape(B, S, H * vd) @ w["wo"].flatten(0, 1)
+    o = linear(out.reshape(B, S, H * vd), w["wo"].flatten(0, 1))
     new_cache = {"ckv": ckv, "k_rope": k_rope} if mode == "prefill" else None
     return o, new_cache

@@ -154,22 +154,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return rotate(x, rope_tables(positions, x.shape[-1], theta, pct, x.dtype))
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 stationary: bool = False) -> torch.Tensor:
     """Rows ``tokens`` of the embedding table.  Under a mesh (DTensor
     table and tokens) the table is gathered whole and each rank looks up
     its own tokens: the sharding propagation's masked lookup over a
-    vocab-sharded table does not take batch-sharded indices."""
+    vocab-sharded table does not take batch-sharded indices.  With
+    ``stationary`` (decode: a few tokens) the table stays where it lies
+    and the tokens move: each rank looks up, on its slice of the embed
+    dim, the tokens whose rows it holds and zeros for the rest, and the
+    sum over the vocab's ranks completes each row (a ``Partial`` result,
+    exact: one rank holds each row)."""
     from repro_torch.parallel.sharding import (is_dtensor, local_map,
-                                               partial_over, replicated_like)
+                                               partial_over, replicated_like,
+                                               shard_index)
     if not is_dtensor(table):
         return F.embedding(tokens.long(), table)
-    from torch.distributed.tensor import Replicate
-    rep = [Replicate()] * table.device_mesh.ndim
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    rep = [Replicate()] * mesh.ndim
     tok = tokens if is_dtensor(tokens) else replicated_like(tokens, table)
-    where = list(tok.placements)
-    return local_map(lambda t, w: F.embedding(t.long(), w),
-                     where, (where, rep),
-                     (where, partial_over(rep, where)))(tok, table)
+    if not stationary:
+        where = list(tok.placements)
+        return local_map(lambda t, w: F.embedding(t.long(), w),
+                         where, (where, rep),
+                         (where, partial_over(rep, where)))(tok, table)
+    v_idx, _ = shard_index(mesh, table.placements, 0)
+
+    def lookup(t, w):
+        ids = t.long() - v_idx * w.shape[0]
+        here = (ids >= 0) & (ids < w.shape[0])
+        rows = F.embedding(ids.clamp(0, w.shape[0] - 1), w)
+        return rows.masked_fill(~here[..., None], 0)
+
+    out = [Partial() if isinstance(p, Shard) and p.dim == 0 else
+           Shard(tok.dim()) if isinstance(p, Shard) else Replicate()
+           for p in table.placements]
+    return local_map(lookup, out, (rep, list(table.placements)))(tok, table)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -198,13 +219,25 @@ def mlp_specs(d_model: int, d_ff: int, act: str) -> Dict[str, Spec]:
     }
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``w`` (K, N) cast to ``x.dtype`` (bf16 weights under
+    an f32 model compute in f32, as jnp's type promotion does).  Under a
+    mesh, a weight still sharded over an FSDP axis -- decode leaves each
+    layer's matrices where they lie -- is used where it lies
+    (``parallel/sharding.py::stationary_matmul``)."""
+    from repro_torch.parallel.sharding import fsdp_sharded, stationary_matmul
+    w = w.to(x.dtype)
+    if fsdp_sharded(w):
+        return stationary_matmul(x, w)
+    return x @ w
+
+
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Tensor:
     """Weights are cast to ``x.dtype`` (bf16 weights under an f32 model
     compute in f32, as jnp's type promotion does)."""
     f = activation(act)
-    w = {k: v.to(x.dtype) for k, v in p.items()}
-    if "wi_gate" in w:
-        h = f(x @ w["wi_gate"]) * (x @ w["wi_up"])
+    if "wi_gate" in p:
+        h = f(linear(x, p["wi_gate"])) * linear(x, p["wi_up"])
     else:
-        h = f(x @ w["wi"])
-    return h @ w["wo"]
+        h = f(linear(x, p["wi"]))
+    return linear(h, p["wo"])

@@ -39,9 +39,11 @@ path (``serve/paged_model.py``) takes.
 
 Under a mesh (``parallel/sharding.py``: DTensor parameters laid out by
 :func:`params_logical_axes`) each repeat gathers its weights over the FSDP
-axes at use (``unshard``; under remat again in the backward), the residual
-stream and the logits are pinned to their layouts where the reference
-constrains them, and the kernels run on each rank's local shards
+axes at use (``unshard``; under remat again in the backward) but for the
+MoE's experts and, in decode, every matrix, which its products use where
+it lies (:func:`_at_use`); the residual stream and the logits are pinned
+to their layouts where the reference constrains them, their gradients
+too, and the kernels run on each rank's local shards
 (``models/attention.py``, ``models/ssm.py``, ``models/moe.py``).
 """
 
@@ -340,14 +342,42 @@ def unstack(gp) -> List[Any]:
     return [dict(zip(per, rep)) for rep in zip(*per.values())]
 
 
+_STREAM = ("batch", None, None)    # the residual stream's logical layout
+
+
 def _residual(x, o):
     """``x + o``, and under a mesh the sum pinned to the residual stream's
-    layout (batch over the FSDP axes, whole over ``model``): a sublayer's
-    row-parallel output is summed over ``model`` here, once, so the next
-    sublayer's products run column-parallel on each rank's own weights
-    (left alone, the sharding propagation defers the sum and gathers whole
-    weights instead, redoing each product on every ``model`` rank)."""
-    return constrain(x + o, ("batch", None, None))
+    layout (batch over the FSDP axes, whole over ``model``), its gradient
+    too: a sublayer's row-parallel output is summed over ``model`` here,
+    once, so the next sublayer's products run column-parallel on each
+    rank's own weights (left alone, the sharding propagation defers the sum
+    and gathers whole weights instead, redoing each product on every
+    ``model`` rank)."""
+    return constrain(x + o, _STREAM)
+
+
+def _post_norm(o, scale, cfg):
+    """A post-norm of a sublayer's output; under a mesh the output is
+    pinned to the stream's layout first, so the norm (not linear in it)
+    meets a sum, not a ``Partial`` one, in both passes."""
+    return L.rms_norm(constrain(o, _STREAM), scale, cfg.norm_eps)
+
+
+_EXPERTS = ("wi_gate", "wi_up", "wo")    # a "moe" block's expert weights
+
+
+def _at_use(tree, mode: str, key: str = ""):
+    """One repeat's weights as its products use them: FSDP's gather at use
+    (``unshard``), except where a product uses a weight where it lies --
+    the MoE's experts (``models/moe.py`` lays them out itself) and, in
+    decode, every matrix (one token a row moves less than a weight does:
+    ``layers.linear``); vectors are gathered in every mode."""
+    if isinstance(tree, dict):
+        return {k: (v if key == "moe" and k in _EXPERTS
+                    else _at_use(v, mode, k)) for k, v in tree.items()}
+    if mode == "decode" and isinstance(tree, torch.Tensor) and tree.dim() > 1:
+        return tree
+    return unshard(tree)
 
 
 def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
@@ -363,7 +393,7 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
                           pos=pos, kv_source=kv_source, causal=spec.causal,
                           layer_idx=layer_idx, impl=impl)
         if cfg.post_norms:
-            o = L.rms_norm(o, lp["post_norm1"], cfg.norm_eps)
+            o = _post_norm(o, lp["post_norm1"], cfg)
         x = _residual(x, o)
         if c:
             new_cache.update(c)
@@ -409,7 +439,7 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
         o = L.mlp_apply(lp["mlp"], h, cfg.act)
         if cfg.post_norms:
-            o = L.rms_norm(o, lp["post_norm2"], cfg.norm_eps)
+            o = _post_norm(o, lp["post_norm2"], cfg)
         x = _residual(x, o)
     elif spec.mlp == "moe":
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
@@ -432,8 +462,8 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
         # g, gc and produced bound now: under remat the backward's
         # recompute calls this after the loop has moved on
         def repeat(x, aux, lp, rep, g=g, gc=gc, produced=produced):
-            x = constrain(x, ("batch", None, None))
-            lp, shared = unshard(lp), unshard(shared_params)
+            x = constrain(x, _STREAM)
+            lp, shared = _at_use(lp, mode), _at_use(shared_params, mode)
             for pi, ls in enumerate(g.pattern):
                 key = f"p{pi}"
                 # decode writes the STACKED cache at [layer, ...] in place
@@ -498,10 +528,11 @@ def apply_model(
     dt = L.torch_dtype(cfg.dtype)
     dev = params["embed"].device
     tokens = tokens.to(dev)
-    x = L.embed_lookup(params["embed"], tokens).to(dt)
+    x = L.embed_lookup(params["embed"], tokens,
+                       stationary=mode == "decode").to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
-    x = constrain(x, ("batch", None, None))
+    x = constrain(x, _STREAM)
 
     pos = cache["pos"] if (cache is not None and mode == "decode") else None
 
@@ -527,7 +558,7 @@ def apply_model(
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = x @ unshard(head).to(dt)
+    logits = L.linear(x, head if mode == "decode" else unshard(head))
     logits = L.softcap(logits, cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=dev) >= cfg.vocab

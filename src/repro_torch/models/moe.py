@@ -30,9 +30,10 @@ Under a mesh whose ``model`` axis divides the experts and the sequence,
 slice (capacity over its local tokens), sends the capacity-selected
 tokens to the experts' owners with one all-to-all over ``model``, runs its
 E/tp local experts, and all-to-alls the outputs home; the aux losses are
-averaged over every shard.  Under any other mesh the dense dispatch runs
-on the whole batch on every rank (the reference's routing over all
-tokens), and its output is pinned back to the batch layout.
+averaged over every shard.  Under any other mesh (:func:`_moe_sharded`)
+every rank routes the whole batch as the reference does, runs only its
+own experts' slots on the expert weights where they lie, and one
+all-reduce over ``model`` sums the ranks' outputs.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Spec, mlp_apply, mlp_specs
-from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 from repro_torch.parallel import sharding as shlib
 
 __all__ = ["apply_moe", "apply_moe_ep", "capacity", "moe_specs", "route"]
@@ -84,9 +84,13 @@ def route(p: Dict[str, torch.Tensor], xt: torch.Tensor, cfg: ArchConfig):
     ``(top_i, cw, ci, aux)``: each token's experts (T, k), and each
     expert's kept weights and token ids (E, C), zero weight on a slot no
     routed token filled."""
+    return _routing(xt.float() @ p["router"].float(), cfg)  # (T, E) logits
+
+
+def _routing(logits: torch.Tensor, cfg: ArchConfig):
+    """:func:`route` from the router's logits (T, E)."""
     m = cfg.moe
-    T = xt.shape[0]
-    logits = xt.float() @ p["router"].float()              # (T, E)
+    T = logits.shape[0]
     gates = torch.softmax(logits, dim=-1)
     top_w, top_i = _top_k(gates, m.top_k)                  # (T, k)
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
@@ -115,10 +119,14 @@ def _expert_ffn(p, xe: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return torch.bmm(h, w["wo"])                           # (E, C, D)
 
 
-def _combine(ye: torch.Tensor, cw, ci, top_i, T: int, dtype) -> torch.Tensor:
+def _combine(ye: torch.Tensor, cw, ci, top_i, T: int, dtype,
+             e0: int = 0) -> torch.Tensor:
     """Each token's expert outputs (rows of ``ye`` (E, C, D), weighted by
     ``cw``), added in ascending expert order: the reference's scatter-add
-    in a fixed order.  Returns (T, D) in ``dtype``."""
+    in a fixed order.  Returns (T, D) in ``dtype``.  With ``e0``, ``ye``,
+    ``cw`` and ``ci`` hold experts ``e0 .. e0 + E - 1`` of ``top_i``'s
+    ids, and only their outputs are added (one rank's share of a sum over
+    ranks)."""
     E, C = ci.shape
     D = ye.shape[-1]
     ye = ye * cw.to(ye.dtype)[..., None]                   # 0 where untaken
@@ -135,7 +143,9 @@ def _combine(ye: torch.Tensor, cw, ci, top_i, T: int, dtype) -> torch.Tensor:
     tok = torch.arange(T, device=dev)
     out = torch.zeros((T, D), dtype=dtype, device=dev)
     for j in range(top_i.shape[1]):
-        sj = slot[experts[:, j], tok]                       # (T,)
+        e = experts[:, j] - e0                              # (T,)
+        here = (e >= 0) & (e < E)
+        sj = torch.where(here, slot[e.clamp(0, E - 1), tok], -1)
         kept = (sj >= 0)[:, None]
         out = out + torch.where(kept, ye[sj.clamp_min(0)], 0)
     return out
@@ -197,6 +207,22 @@ class _Mean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n, None
+
+
+class _Psum(torch.autograd.Function):
+    """The sum over process groups of each rank's partial sum
+    (``jax.lax.psum``).  What follows it splits its work over the same
+    ranks, so its gradient comes back as partial sums too, and is summed
+    the same way."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return shlib.all_reduce(x, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shlib.all_reduce(g.contiguous(), "sum", ctx.groups), None
 
 
 def apply_moe_ep(p, x, *, cfg: ArchConfig, mesh):
@@ -263,16 +289,73 @@ def apply_moe(
             and m.n_experts % shlib.axis_size(mesh, "model") == 0
             and S % shlib.axis_size(mesh, "model") == 0):
         return apply_moe_ep(p, x, cfg=cfg, mesh=mesh)
-    # any other mesh: the whole batch on every rank, then the batch layout
+    return _moe_sharded(p, x, cfg=cfg, mesh=mesh)
+
+
+def _moe_sharded(p, x, *, cfg: ArchConfig, mesh):
+    """Dense dispatch under a mesh that does not take expert parallelism
+    (decode: S = 1 does not divide ``model``), with the reference's
+    routing over the whole batch -- its top-k, its capacity over T, its
+    kept pairs -- and the expert weights where they lie (experts over
+    ``model``, the embed dim over the FSDP axes): each rank runs only its
+    own experts' slots, sums their gate and up products over the embed
+    shards (an all-reduce of (E/tp, C, F) over the FSDP axes), takes its
+    embed slice of the down product, and adds its experts' outputs per
+    token in ascending expert order into a (T, D) partial sum that one
+    all-reduce over ``model`` completes: the reference's "local
+    scatter-add per expert shard, ONE psum of (T, D)"."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
     rep = list(shlib.placements(mesh, ()))
-    leaves = list(tree_leaves(p))
+    xr = x.redistribute(mesh, rep)           # the batch the reference routes
+    # the router's product split by batch rows over ``model``, its logits
+    # gathered: every rank then routes the whole batch
+    tp = (shlib.axis_size(mesh, "model") if "model" in shlib.axis_names(mesh)
+          else 1)
+    rows = list(shlib.placements(mesh, ("model",) if B % tp == 0 else ()))
+    logits = shlib.local_map(
+        lambda xs, r: xs.reshape(-1, D).float() @ r.float(), rows,
+        (rows, rep), (rows, shlib.partial_over(rep, rows)))(xr, p["router"])
 
-    def dense(xr, *ws):
-        out, aux = _moe_dense(tree_unflatten(p, iter(ws)), xr, cfg)
-        return out, aux["moe_aux"], aux["moe_z"]
+    def routing(lg):
+        top_i, cw, ci, aux = _routing(lg, cfg)
+        return top_i, cw, ci, aux["moe_aux"], aux["moe_z"]
 
-    out, a, z = shlib.local_map(dense, (rep, rep, rep),
-                                (rep,) * (1 + len(leaves)))(x, *leaves)
+    top_i, cw, ci, a, z = shlib.local_map(routing, (rep,) * 5, (rep,))(
+        logits.redistribute(mesh, rep))
+
+    wig, wiu, wo = p["wi_gate"], p["wi_up"], p["wo"]
+    wpl, opl = list(wig.placements), list(wo.placements)
+    e_idx, _ = shlib.shard_index(mesh, wpl, 0)
+    d_idx, d_groups = shlib.shard_index(mesh, wpl, 1)
+    f = L.activation("silu" if cfg.act == "silu" else "gelu")
+
+    def experts(xs, cws, cis, tops, wg, wu, wd):
+        El, Dl = wg.shape[0], wg.shape[1]
+        e0, d0 = e_idx * El, d_idx * Dl
+        ci_l, cw_l = cis[e0:e0 + El], cws[e0:e0 + El]
+        xe = xs.reshape(T, D)[ci_l.reshape(-1)].reshape(El, -1, D)
+        xe = xe[..., d0:d0 + Dl]
+        g = torch.bmm(xe, wg.to(xe.dtype))
+        u = torch.bmm(xe, wu.to(xe.dtype))
+        if d_groups:
+            g, u = _Psum.apply(g, d_groups), _Psum.apply(u, d_groups)
+        ye = torch.bmm(f(g) * u, wd.to(xe.dtype))         # (El, C, D slice)
+        out = _combine(ye, cw_l, ci_l, tops, T, xs.dtype, e0)
+        return out.reshape(B, S, -1)
+
+    # out: a partial sum over the ranks that split the experts, the embed
+    # slice of the ranks that split it
+    out_pl = [Partial() if isinstance(q, Shard) and q.dim == 0 else
+              Shard(2) if isinstance(q, Shard) else Replicate() for q in wpl]
+    split = [Partial() if isinstance(q, Shard) else Replicate() for q in wpl]
+    ins = (rep, rep, rep, rep, wpl, wpl, opl)
+    grads = (split, split, rep, rep, wpl, wpl, opl)
+    out = shlib.local_map(experts, out_pl, ins, grads)(
+        xr, cw, ci, top_i, wig, wiu, wo)
     out = shlib.constrain(out, ("batch", None, None))
+    if m.n_shared:
+        out = out + mlp_apply(p["shared"], x, cfg.act)
     return out, {"moe_aux": a, "moe_z": z}
-

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Spec, rms_norm
+from repro_torch.models.layers import Spec, linear, rms_norm
 from repro_torch.parallel import sharding as shlib
 
 
@@ -143,7 +143,7 @@ def apply_mamba2(
     conv_w = p["conv_w"].to(xt)
     conv_b = p["conv_b"].to(xt)
 
-    zxbcdt = x @ p["in_proj"].to(xt)
+    zxbcdt = shlib.whole_last_dim(linear(x, p["in_proj"]))
     z, xbc, dt = _mamba2_split(cfg, zxbcdt)
 
     if mode == "decode":
@@ -190,7 +190,7 @@ def apply_mamba2(
     y = y + p["D_skip"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(B, -1, d_inner)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(xt), new_cache
+    return linear(y, p["out_proj"]), new_cache
 
 
 # ============================================================================
@@ -257,19 +257,18 @@ def apply_rwkv6(
     (re-normed) input so the block can put the residual in between."""
     B, S, D = x.shape
     H, hd = rwkv6_dims(cfg)
-    xt = x.dtype
 
     if mode == "decode":
         xs = _st_read(cache["tm_shift"], layer_idx)[:, None]   # previous token
     else:
         xs = _shift(x)
-    r = _lerp(x, xs, p["mu_r"]) @ p["wr"].to(xt)
-    k = _lerp(x, xs, p["mu_k"]) @ p["wk"].to(xt)
-    v = _lerp(x, xs, p["mu_v"]) @ p["wv"].to(xt)
-    g = _lerp(x, xs, p["mu_g"]) @ p["wg"].to(xt)
+    r = linear(_lerp(x, xs, p["mu_r"]), p["wr"])
+    k = linear(_lerp(x, xs, p["mu_k"]), p["wk"])
+    v = linear(_lerp(x, xs, p["mu_v"]), p["wv"])
+    g = linear(_lerp(x, xs, p["mu_g"]), p["wg"])
     xw = _lerp(x, xs, p["mu_w"])
     w_exp = (p["w0"].float()[None, None]
-             + torch.tanh(xw.float() @ p["wA"].float()) @ p["wB"].float())
+             + linear(torch.tanh(linear(xw.float(), p["wA"])), p["wB"]))
     # clamp: decay below e^-12/step is numerically zero anyway, and bounded
     # log-decays keep the chunked (factored) scan well-conditioned
     w_log = -torch.exp(torch.clamp(w_exp, -8.0, 2.4849))   # (B,S,D), >= -12
@@ -294,16 +293,16 @@ def apply_rwkv6(
     y = rms_norm(y, torch.zeros((hd,), dtype=y.dtype, device=y.device),
                  cfg.norm_eps)
     y = y.reshape(B, -1, D) * (1.0 + p["ln_x"].to(y.dtype))[None, None]
-    tm_out = (y * F.silu(g)) @ p["wo"].to(xt)
+    tm_out = linear(y * F.silu(g), p["wo"])
 
     def cm_fn(xc):
         if mode == "decode":
             xcs = _st_read(cache["cm_shift"], layer_idx)[:, None]
         else:
             xcs = _shift(xc)
-        kk = F.relu(_lerp(xc, xcs, p["cm_mu_k"]) @ p["cm_wk"].to(xt)) ** 2
-        rr = torch.sigmoid(_lerp(xc, xcs, p["cm_mu_r"]) @ p["cm_wr"].to(xt))
-        return rr * (kk @ p["cm_wv"].to(xt)), xc[:, -1].clone()
+        kk = F.relu(linear(_lerp(xc, xcs, p["cm_mu_k"]), p["cm_wk"])) ** 2
+        rr = torch.sigmoid(linear(_lerp(xc, xcs, p["cm_mu_r"]), p["cm_wr"]))
+        return rr * linear(kk, p["cm_wv"]), xc[:, -1].clone()
 
     new_cache = None
     if mode == "prefill":

@@ -228,19 +228,62 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+class _Pin(torch.autograd.Function):
+    """``x`` redistributed to ``want``, and its gradient to ``grad_want``:
+    the counterpart of ``with_sharding_constraint``, which constrains the
+    cotangent as well.  DTensor's own redistribution hands a ``Partial``
+    input's gradient back replicated but leaves a gradient that arrives
+    ``Partial`` as it is."""
+
+    @staticmethod
+    def forward(ctx, x, want, grad_want):
+        ctx.grad_want = grad_want
+        return x.redistribute(x.device_mesh, want) \
+            if tuple(x.placements) != want else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.grad_want:
+            g = g.redistribute(g.device_mesh, ctx.grad_want)
+        return g, None, None
+
+
 def constrain(x, dims: Sequence[Optional[str]]):
-    """Redistribute a DTensor to the layout of its logical dims; a no-op
-    without a mesh or on a plain tensor.
+    """Redistribute a DTensor to the layout of its logical dims, and its
+    gradient in the backward; a no-op without a mesh or on a plain tensor.
 
     Keeping the residual stream pinned to (batch=data, ...) stops the
     sharding propagation from turning FSDP products into batch-replicated
-    partial sums."""
+    partial sums.  Pinning its gradient matters as much: a column-parallel
+    product's input gradient is ``Partial`` over ``model``, and left so it
+    reaches the previous row-parallel product, whose backward then gathers
+    its weight whole and redoes the product on every ``model`` rank."""
     if _CURRENT_MESH is None or not is_dtensor(x):
         return x
     want = placements(x.device_mesh, spec_for(x.device_mesh, dims, x.shape))
-    if tuple(x.placements) == want:
+    if tuple(x.placements) == want and not x.requires_grad:
         return x
-    return x.redistribute(x.device_mesh, want)
+    return _Pin.apply(x, want, want)
+
+
+def whole_last_dim(x):
+    """A DTensor's last dim gathered whole (over the mesh axes that shard
+    it), its gradient cut back to the shards: for a column-parallel
+    product's output that is then cut at boundaries the shards do not
+    follow (Mamba2's in_proj into z, x, B, C, dt).  Left to DTensor, the
+    backward gathers that gradient whole too, and the weight's gradient
+    product runs at full width on every rank.  A no-op on a plain
+    tensor."""
+    if _CURRENT_MESH is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    have = tuple(x.placements)
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                 else p for p in have)
+    if want == have:
+        return x
+    return _Pin.apply(x, want, have)
 
 
 def _is_axes_leaf(x) -> bool:
@@ -353,6 +396,90 @@ def partial_over(placements_, data_placements):
 def layout(mesh, dims, t) -> list:
     """The placements of ``t`` by its logical dims (and shape)."""
     return list(placements(mesh, spec_for(mesh, dims, tuple(t.shape))))
+
+
+def shard_index(mesh, placements_, dim: int):
+    """(this rank's chunk index along tensor dim ``dim`` of a DTensor laid
+    out as ``placements_``, the process groups of the mesh axes that
+    shard that dim): the axes nest in mesh order, as DTensor's chunks
+    do."""
+    from torch.distributed.tensor import Shard
+    idx, groups = 0, []
+    for m, p in enumerate(placements_):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx = idx * mesh.size(m) + mesh.get_local_rank(m)
+            groups.append(mesh.get_group(m))
+    return idx, groups
+
+
+def all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` reduced (``op``: "sum", "max", ...) over each process group of
+    ``groups`` in turn: a local tensor inside a ``local_map``."""
+    import torch.distributed._functional_collectives as funcol
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+    return t
+
+
+def fsdp_sharded(w) -> bool:
+    """Whether DTensor ``w`` is still sharded over an FSDP axis (decode
+    leaves a layer's matrices so: :func:`stationary_matmul`)."""
+    if not is_dtensor(w):
+        return False
+    from torch.distributed.tensor import Shard
+    fsdp = set(fsdp_axes(w.device_mesh))
+    return any(isinstance(p, Shard) and n in fsdp
+               for n, p in zip(axis_names(w.device_mesh), w.placements))
+
+
+def stationary_matmul(x, w):
+    """``x @ w`` (``w`` (K, N)) with ``w`` left where it lies: the
+    activation moves, not the weight.  Each mesh axis that shards ``w``'s
+    K takes the matching slice of ``x``'s last dim and sums its partial
+    products (``Partial``); an axis that shards N splits the output; an
+    axis over which ``w`` is whole splits whichever of N and K no other
+    axis splits (a local slice of the weight, no communication), so every
+    rank does its own share of the product and no rank redoes another's.
+    ``x`` comes whole over its leading (batch) dims: one decode token a
+    row, so the activations moved are small.  The result is laid out as
+    the product after FSDP's gather would be: ``x``'s leading dims as they
+    came, N sharded where ``w``'s N is over a non-FSDP axis, ``Partial``
+    where its K is.  No gradient: decode's products."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    names, fsdp = axis_names(mesh), set(fsdp_axes(mesh))
+    K, N = w.shape
+    last = x.dim() - 1
+    taken = {p.dim for p in w.placements if isinstance(p, Shard)}
+    wpl, xpl, ypl = [], [], []
+    for m, p in enumerate(w.placements):
+        if not isinstance(p, Shard):
+            if 1 not in taken and N % mesh.size(m) == 0:
+                p = Shard(1)
+            elif 0 not in taken and K % mesh.size(m) == 0:
+                p = Shard(0)
+            if isinstance(p, Shard):
+                taken.add(p.dim)
+        wpl.append(p)
+        if isinstance(p, Shard) and p.dim == 0:
+            xpl.append(Shard(last))
+            ypl.append(Partial())
+        elif isinstance(p, Shard):
+            xpl.append(Replicate())
+            ypl.append(Shard(last))
+        else:
+            xpl.append(Replicate())
+            ypl.append(Replicate())
+    y = local_map(lambda xs, ws: xs @ ws, ypl, (xpl, wpl))(x, w)
+    want = []
+    for n, p, xp in zip(names, w.placements, x.placements):
+        if isinstance(xp, Shard) and xp.dim < last:
+            want.append(xp)
+        elif n in fsdp or not isinstance(p, Shard):
+            want.append(Replicate())
+        else:
+            want.append(Shard(last) if p.dim == 1 else Partial())
+    return y.redistribute(mesh, want)
 
 
 def unshard(tree):

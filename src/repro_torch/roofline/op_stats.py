@@ -19,7 +19,10 @@ DTensor's sharding propagation turns each global op into -- and records:
   ``c10d`` send / recv), with its group size and payload, through the ring
   formulas of ``roofline/analysis.py``;
 * live bytes: the peak of the bytes held by tensors the step created
-  (saved activations included), for the dry-run's ``temp_bytes``.
+  (saved activations included), for the dry-run's ``temp_bytes``;
+* FLOPs per product, keyed by the op and its input shapes (a kernel by
+  its name and its inputs' shapes): :meth:`OpStats.top_products` says
+  which products make a rank's FLOPs, the dry-run's ``top_products``.
 
 Python loops run their body once per trip, so a layer loop counts once
 per layer by nature (the reference's analyzer had to multiply while-loop
@@ -96,6 +99,7 @@ class OpStats(TorchDispatchMode):
     n_ops: int = 0
     live_bytes: int = 0
     peak_bytes: int = 0
+    products: Dict[Tuple[str, Tuple], float] = field(default_factory=dict)
 
     def __post_init__(self):
         super().__init__()
@@ -131,8 +135,14 @@ class OpStats(TorchDispatchMode):
         self.collectives.append((kind, float(payload), int(n)))
         self.coll.add(kind, ring_bytes(kind, payload, n))
 
-    def add_kernel(self, name: str, flops: float, nbytes: float) -> None:
+    def _tally(self, op: str, shapes: Tuple, flops: float) -> None:
+        key = (op, shapes)
+        self.products[key] = self.products.get(key, 0.0) + flops
+
+    def add_kernel(self, name: str, flops: float, nbytes: float,
+                   shapes: Tuple = ()) -> None:
         self.kernels[name] = self.kernels.get(name, 0) + 1
+        self._tally(name, shapes, flops)
         self.flops += flops
         self.hbm_bytes += nbytes
         self.hbm_bytes_raw += nbytes
@@ -176,7 +186,9 @@ class OpStats(TorchDispatchMode):
             return out                      # wait_tensor, recv, barrier
         flop_fn = self._flop_registry.get(func._overloadpacket)
         if flop_fn is not None:
-            self.flops += flop_fn(*args, **kwargs, out_val=out)
+            f = flop_fn(*args, **kwargs, out_val=out)
+            self.flops += f
+            self._tally(name, tuple(tuple(t.shape) for t in ins), f)
         views = any(r.alias_info is not None for r in func._schema.returns)
         if name in _ALLOC:
             for t in outs:
@@ -192,6 +204,14 @@ class OpStats(TorchDispatchMode):
             for t in outs:
                 self._track(t)
         return out
+
+    def top_products(self, n: int = 10) -> List[Dict]:
+        """The ``n`` products (op, input shapes) with the most FLOPs, each
+        with its FLOPs and its share of all of this rank's FLOPs."""
+        top = sorted(self.products.items(), key=lambda kv: -kv[1])[:n]
+        return [{"op": op, "shapes": [list(s) for s in shapes],
+                 "flops": f, "share": f / self.flops if self.flops else 0.0}
+                for (op, shapes), f in top]
 
     def as_dict(self) -> Dict:
         return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,
@@ -219,7 +239,8 @@ class _MetaKernel(torch.autograd.Function):
         ctx.shapes = [(t.shape, t.dtype) for t in inputs]
         rec = active()
         if rec is not None:
-            rec.add_kernel(name, flops, nbytes)
+            rec.add_kernel(name, flops, nbytes,
+                           tuple(tuple(s) for s, _ in ctx.shapes))
         return torch.empty(shape, dtype=dtype, device="meta")
 
     @staticmethod
@@ -227,7 +248,8 @@ class _MetaKernel(torch.autograd.Function):
         rec = active()
         if rec is not None:
             rec.add_kernel(ctx.name + ".vjp", 2.5 * ctx.flops,
-                           2 * ctx.nbytes)
+                           2 * ctx.nbytes,
+                           tuple(tuple(s) for s, _ in ctx.shapes))
         return (None,) * 5 + tuple(
             torch.zeros(s, dtype=d, device="meta") for s, d in ctx.shapes)
 

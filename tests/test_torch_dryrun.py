@@ -2,9 +2,10 @@
 ``python -m repro_torch.launch.dryrun`` (a ``fake`` process group of 256 /
 512 ranks and the meta device, in a subprocess), and the op counter's
 counterparts of tests/test_roofline.py: exact FLOPs of a loop-free product
-chain, loops counted per trip, the ring formulas on recorded collectives,
-pure data movement out of the semantic bytes, and DTensor's all-to-all
-counted as one on a CPU mesh."""
+chain (and the exact shares of its per-product tally), loops counted per
+trip, the ring formulas on recorded collectives, pure data movement out of
+the semantic bytes, and DTensor's all-to-all counted as one on a CPU
+mesh."""
 
 import json
 import subprocess
@@ -41,6 +42,10 @@ def test_single_pod_cell_runs(tmp_path):
     assert r["bottleneck"] in ("compute", "memory", "collective")
     assert d["memory"]["argument_bytes"] > 0
     assert d["memory"]["per_device_total_gib"] > 0
+    top = d["top_products"]
+    assert 0 < len(top) <= 10
+    assert sum(t["flops"] for t in top) <= r["flops_per_device"]
+    assert all(t["share"] == t["flops"] / r["flops_per_device"] for t in top)
 
 
 def test_multi_pod_cell_runs(tmp_path):
@@ -69,6 +74,25 @@ def test_loop_free_product_flops_exact():
     with OpStats() as st:
         (_meta(512, 256) @ _meta(256, 1024)) @ _meta(1024, 128)
     assert st.flops == 2 * 512 * 256 * 1024 + 2 * 512 * 1024 * 128
+
+
+def test_top_products_shares_exact():
+    """The per-product tally: FLOPs by (op, input shapes), a repeated
+    product summed, its shares exact on a loop-free chain."""
+    a, b, c = _meta(512, 256), _meta(256, 1024), _meta(1024, 128)
+    with OpStats() as st:
+        ab = a @ b
+        ab @ c
+        ab @ c
+    f1, f2 = 2 * 512 * 256 * 1024, 2 * 2 * 512 * 1024 * 128
+    assert st.flops == f1 + f2
+    top = st.top_products()
+    assert [(t["op"], t["shapes"], t["flops"]) for t in top] == [
+        ("mm", [[512, 256], [256, 1024]], f1),
+        ("mm", [[512, 1024], [1024, 128]], f2)]
+    assert [t["share"] for t in top] == [f1 / (f1 + f2), f2 / (f1 + f2)]
+    assert sum(t["share"] for t in top) == 1.0
+    assert len(st.top_products(1)) == 1
 
 
 def test_loop_counts_per_trip():
@@ -120,6 +144,8 @@ def test_kernel_stand_in_records_forward_and_vjp():
         y.sum().backward()
     assert st.kernels == {"flash_attention": 1, "flash_attention.vjp": 1}
     assert st.flops == 1000.0 + 2500.0
+    assert {(t["op"], t["flops"]) for t in st.top_products()} == {
+        ("flash_attention", 1000.0), ("flash_attention.vjp", 2500.0)}
     assert q.grad.shape == q.shape
 
 
