@@ -197,7 +197,15 @@ Phases (any failure raises and exits non-zero; none is caught):
               where it lies): logits and the written K/V against the
               unsharded step, f32 within 1e-4 relative, bf16 within
               max(5e-2, 2 x the unsharded bf16 step's own distance from
-              f32), the unsharded f32 step's routing replayed.
+              f32), the unsharded f32 step's routing replayed.  The
+              sharded layouts tests/test_torch_sharded_layout.py holds, at
+              smoke width in f32 against the unsharded port (1e-4
+              relative): llama-vision trained on (2, 4) (the "groups"
+              layout: each rank its kv head) and zamba2 (Mamba2 by
+              heads), each with a prefill's logits and cache;
+              decode steps of starcoder2 (a cache sequence over model),
+              deepseek (MLA's latent attention), rwkv6 at batch 1 on
+              (4, 2) and zamba2 (stationary products).
               starcoder2-7b at full width
               cut to 2 layers on (data=1, model=8), context parallel (36
               heads over 8): prefill logits (f32 1e-3, bf16 as the dense
@@ -208,7 +216,9 @@ Phases (any failure raises and exits non-zero; none is caught):
               x 2 replicas, d=4096, atol 1e-4), and three dry-run cells in
               subprocesses (rwkv6 decode_32k, whisper prefill_32k
               multi-pod, gemma2 long_500k: SKIP), each cell's FLOPs a
-              device beside the reference's dry-run of it (a CPU count).
+              device (the busiest of rank 0 and the last model position)
+              and collective bytes beside the reference's dry-run of it
+              (CPU counts).
 
 After each group of phases a ``time: ... done at N s`` line gives the
 time since the card phase began.  The last two lines of standard output
@@ -244,6 +254,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
                                  llama32_vision_90b, olmoe_1b_7b, rwkv6_1p6b,
                                  starcoder2_7b, whisper_small, zamba2_2p7b)
+from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core.gauntlet import (gauntlet_cell,  # noqa: E402
                                        run_gauntlet, summarize)
 from repro_torch.core.smr.registry import PAPER_SET  # noqa: E402
@@ -3036,6 +3047,11 @@ DRYRUN_CELLS = (("rwkv6_1p6b", "decode_32k", False),
 # not a time on any chip; gemma2 long_500k is a skip in both packages
 REF_DRYRUN_FLOPS = {("rwkv6_1p6b", "decode_32k", False): 1452277760.0,
                     ("whisper_small", "prefill_32k", True): 3554671337472.0}
+# and its collective bytes a device (ring formulas over its HLO's
+# collectives): the same run's counts
+REF_DRYRUN_COLLECTIVE = {("rwkv6_1p6b", "decode_32k", False): 351316928.0,
+                         ("whisper_small", "prefill_32k", True):
+                         4489163776.0}
 DRYRUN_TIMEOUT_S = 600.0
 
 
@@ -3573,6 +3589,148 @@ def _dist_cp(rank: int, failed: list) -> dict:
     return out
 
 
+# the sharded layouts tests/test_torch_sharded_layout.py holds on the CPU's
+# gloo ranks, at smoke width: (arch, step, mesh (data, model), batch)
+LAYOUT_CASES = (
+    ("llama32_vision_90b", "train", (2, 4), 4),   # the "groups" layout
+    ("zamba2_2p7b", "train", (2, 4), 4),          # Mamba2 by heads
+    ("starcoder2_7b", "decode", (2, 4), 4),       # cache sequence over model
+    ("deepseek_v3_671b", "decode", (2, 4), 4),    # MLA's latent attention
+    ("rwkv6_1p6b", "decode", (4, 2), 1),          # stationary, batch 1
+    ("zamba2_2p7b", "decode", (2, 4), 4),         # stationary matmuls
+)
+LAYOUT_SEQ, LAYOUT_CACHE = 16, 16      # train / prefill tokens; cache length
+
+
+def _layout_batch(cfg, B, rng):
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, LAYOUT_SEQ)))
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    if cfg.n_frontend_tokens:
+        batch["frontend"] = torch.from_numpy(0.02 * rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    return {k: v.to(DEV) for k, v in batch.items()}
+
+
+def _layout_train(cfg, mesh, params, dp, B, rank):
+    """(the unsharded run's tensors on rank 0, the sharded run's gathered
+    whole, the sharded run's launches): loss and every grad, and a
+    prefill's last logits and every leaf of its cache."""
+    batch = _layout_batch(cfg, B, np.random.default_rng(SEED + 31))
+
+    def run(p, b):
+        (loss, _), grads = value_and_grad(p, b, cfg)
+        got = {"loss": loss.reshape(1)}
+        got.update((f"grad {k}", g) for k, g in flatten_with_paths(grads))
+        lg, cache = make_prefill_step(cfg)(p, b["tokens"], b.get("frontend"))
+        got["prefill logits"] = lg
+        got.update((f"prefill cache {k}", c) for k, c in
+                   flatten_with_paths(cache["groups"]))
+        return got
+
+    ref = run(params, batch) if rank == 0 else None
+    sh.set_mesh(mesh)
+    try:
+        db = {k: sh.distribute(v, mesh, sh.spec_for(
+            mesh, ("batch",) + (None,) * (v.dim() - 1), tuple(v.shape)))
+            for k, v in batch.items()}
+        build.reset_launch_counts()
+        got = run(dp, db)
+        launches = dict(build.launch_counts)
+        got = {k: sh.full(v) for k, v in got.items()}
+    finally:
+        sh.set_mesh(None)
+    return ref, got, launches
+
+
+def _layout_decode(cfg, mesh, params, dp, B, rank):
+    """As :func:`_layout_train` for one decode step over a random cache
+    (position 12 of 16): the logits and every cache leaf after it."""
+    rng = np.random.default_rng(SEED + 30)
+    cache = init_cache(cfg, B, LAYOUT_CACHE, dtype="float32", device=DEV)
+    for leaf in tree_leaves(cache["groups"]):
+        leaf.copy_(torch.from_numpy(0.5 * rng.standard_normal(
+            tuple(leaf.shape)).astype(np.float32)))
+    cache["pos"].fill_(12)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).to(DEV)
+
+    def run(p, c, t):
+        lg, c, _ = apply_model(p, t, cfg=cfg, mode="decode", cache=c)
+        got = {"logits": lg}
+        got.update((f"cache {k}", v) for k, v in
+                   flatten_with_paths(c["groups"]))
+        return got
+
+    ref = run(params, tree_map(torch.clone, cache), toks) \
+        if rank == 0 else None
+    sh.set_mesh(mesh)
+    try:
+        dc = sh.tree_distribute(mesh, cache, model_mod.cache_axes(cfg))
+        dt = sh.distribute(toks, mesh, sh.spec_for(mesh, ("batch", None),
+                                                    tuple(toks.shape)))
+        build.reset_launch_counts()
+        got = run(dp, dc, dt)
+        launches = dict(build.launch_counts)
+        got = {k: sh.full(v) for k, v in got.items()}
+    finally:
+        sh.set_mesh(None)
+    return ref, got, launches
+
+
+def _dist_layouts(rank: int, failed: list) -> dict:
+    """The sharded layouts that only the CPU's gloo ranks held before
+    (LAYOUT_CASES), on the card at smoke width in f32 (TF32 off) against
+    the unsharded port (rank 0): the "groups" layout (llama-vision: each
+    rank projects its one kv head; a prefill's self-attention cache on
+    sequence slices), Mamba2 by heads (zamba2: the weights re-laid, the
+    activations never gathered), each trained and prefilled; decode over a
+    cache whose sequence holds ``model`` (starcoder2's 2 kv heads over 4:
+    the softmax combined over slices), MLA's latent attention over its
+    sharded cache (deepseek), and the stationary products of decode at
+    batch 1 (rwkv6) and 4 (zamba2).  Every tensor within DIST_LOSS_TOL
+    relative (a norm ratio); a leaf the unsharded run leaves all zero must
+    be all zero.  Returns each case's kernel launches on this rank."""
+    out = {}
+    for arch, step, shape, B in LAYOUT_CASES:
+        cfg = get_smoke_config(arch).scaled(dtype="float32")
+        mesh = make_host_mesh(shape, ("data", "model"))
+        params = _f32(init_params(cfg, torch.Generator(
+            device=DEV).manual_seed(SEED), device=DEV))
+        dp = sh.tree_distribute(mesh, params, params_logical_axes(cfg))
+        t0 = time.monotonic()
+        run = _layout_train if step == "train" else _layout_decode
+        ref, got, launches = run(cfg, mesh, params, dp, B, rank)
+        ms = 1e3 * (time.monotonic() - t0)
+        name = f"{cfg.name} {step} {shape}"
+        out[name] = {k: launches[k] for k in ("flash_attention",
+                                              "linear_scan")}
+        if rank == 0:
+            worst, at, bad = 0.0, None, []
+            for key, want in ref.items():
+                a, b = got[key].float(), want.float()
+                if not bool(torch.isfinite(a).all()):
+                    bad.append(key)
+                    continue
+                if float(b.norm()) == 0.0:
+                    if float(a.norm()) != 0.0:
+                        bad.append(key)
+                    continue
+                e = _rel(a, b)
+                if e > worst:
+                    worst, at = e, key
+                if e > DIST_LOSS_TOL:
+                    bad.append(key)
+            ok = not bad and set(got) == set(ref)
+            log(f"dist layout {name} float32: {len(ref)} tensors sharded vs "
+                f"unsharded, worst {at} rel {worst:.3e} (tol "
+                f"{DIST_LOSS_TOL:g}; over: {bad}); launches on rank 0 "
+                f"{out[name]}; {ms:.0f} ms (host clock, both runs): {ok}")
+            if not ok:
+                failed.append(f"dist layout {name}: {bad}")
+        del params, dp, ref, got
+        free_cuda()
+    return out
+
+
 def _dist_compression(rank: int, failed: list) -> dict:
     """compressed_psum over the 8 ranks: the reference test's input and
     bounds, and one olmoe layer's gradient size, timed."""
@@ -3674,6 +3832,7 @@ def _dist_rank(rank: int, world: int, init: str, out_dir: str) -> None:
     try:
         res["olmoe"] = _dist_olmoe(rank, failed)
         res["olmoe_decode"] = _dist_olmoe_decode(rank, failed)
+        res["layouts"] = _dist_layouts(rank, failed)
         res["cp"] = _dist_cp(rank, failed)
         res["compression"] = _dist_compression(rank, failed)
         res["pipeline"] = _dist_pipeline(rank, failed)
@@ -3724,16 +3883,24 @@ def _finish_dryruns(procs, out_dir: str, deadline: float) -> None:
             r = cell.get("roofline", {})
             flops = r.get("flops_per_device", 0)
             want = REF_DRYRUN_FLOPS[(arch, shape, multi)]
+            coll = r.get("collective_bytes_per_device", 0)
+            want_coll = REF_DRYRUN_COLLECTIVE[(arch, shape, multi)]
+            ranks = "; ".join(f"rank {k} {v['flops']:.4e}" for k, v in
+                              cell.get("ranks", {}).items())
             ok = (p.returncode == 0 and cell.get("status") == "ok"
                   and cell.get("n_devices") == (512 if multi else 256)
+                  and abs(sum(t["share"] for t in cell["top_collectives"])
+                          - 1) < 1e-9
                   and r.get("flops_per_device", 0) > 0 and r.get("bottleneck")
                   in ("compute", "memory", "collective"))
             log(f"dryrun {arch} x {shape} ({'multi' if multi else 'single'}"
                 f"-pod, {cell.get('n_devices')} devices): {said[0] if said else ''}"
-                f"; per device {flops:.4e} FLOPs (the reference's dry-run "
-                f"{want:.4e}, a CPU count: {flops / want:.3f}x), "
+                f"; per device {flops:.4e} FLOPs, the busiest of ({ranks}) "
+                f"(the reference's dry-run {want:.4e}, a CPU count: "
+                f"{flops / want:.3f}x), "
                 f"{r.get('hbm_bytes_per_device', 0):.4e} bytes, collectives "
-                f"{r.get('collective_bytes_per_device', 0):.4e} bytes "
+                f"{coll:.4e} bytes (the reference's {want_coll:.4e}: "
+                f"{coll / want_coll:.3f}x) "
                 f"{ {k: f'{v:.3e}' for k, v in r.get('collective_by_kind', {}).items()} }; "
                 f"step >= {1e3 * r.get('step_time_lower_bound_s', 0):.3f} ms "
                 f"({r.get('bottleneck')}; H100 data-sheet bounds, not "
@@ -3749,8 +3916,9 @@ def phase_dist(card: str, dry=None) -> int:
     H100 over gloo; the kernels were built by this process before.
     ``dry``: the dry-run cells' processes and their output directory, if
     started earlier (on the host's CPU, while the card trains, so they
-    take no CPU from the ranks).  Returns the flash launches of the ranks'
-    main paths (the CP prefills and train step)."""
+    take no CPU from the ranks).  Returns the kernel launches of the
+    ranks' main paths (the CP prefills and train step, the layouts' train
+    steps and prefill), summed over the ranks."""
     t0 = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     dry, dry_dir = dry or (_start_dryruns(tmp), tmp)
@@ -3786,9 +3954,26 @@ def phase_dist(card: str, dry=None) -> int:
             f"tensors itself")
         if any(n == 0 for n in flash["bfloat16"] + flash["train"]):
             raise AssertionError(f"dist: a CP rank launched no flash {flash}")
+        layouts = {name: {k: [r["layouts"][name][k] for r in ranks]
+                          for k in ("flash_attention", "linear_scan")}
+                   for name in ranks[0]["layouts"]}
+        log("dist layout launches per rank: " + "; ".join(
+            f"{name} " + ", ".join(f"{k} {v}" for k, v in got.items()
+                                   if any(v))
+            for name, got in layouts.items()))
+        launched = {k: sum(sum(got[k]) for got in layouts.values())
+                    for k in ("flash_attention", "linear_scan")}
+        for name, want in (("llama-vision-smoke train (2, 4)",
+                            "flash_attention"),
+                           ("zamba2-smoke train (2, 4)", "linear_scan")):
+            if any(n == 0 for n in layouts[name][want]):
+                raise AssertionError(f"dist: a rank of {name} launched no "
+                                     f"{want}: {layouts[name]}")
         _finish_dryruns(dry, dry_dir, time.monotonic() + DRYRUN_TIMEOUT_S)
         log(f"time: dist phase {time.monotonic() - t0:.1f} s")
-        return sum(flash["bfloat16"]) + sum(flash["train"])
+        launched["flash_attention"] += sum(flash["bfloat16"]) + sum(
+            flash["train"])
+        return launched
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3824,7 +4009,7 @@ def main() -> int:
         card = phase_card()
         phase_build()
         launches = phase_dist(card)
-        log(f"dist alone: flash launches {launches}; {card}")
+        log(f"dist alone: launches {launches}; {card}")
         return 0
     t0 = time.monotonic()
 
@@ -3893,8 +4078,10 @@ def main() -> int:
         for name, n in phase_train(card).items():
             launches[name] += n
         done("train")
-        # this slice's path: the ranks' context-parallel flash launches
-        launches["flash_attention"] += phase_dist(card, (dry, dry_dir))
+        # the dist phase's paths: the ranks' context-parallel flash
+        # launches and the sharded layouts' flash and scan launches
+        for name, n in phase_dist(card, (dry, dry_dir)).items():
+            launches[name] += n
         done("dist")
     except BaseException:
         for *_, p in dry:

@@ -2,7 +2,7 @@
 production mesh with no devices and no data, and record its memory, FLOPs,
 bytes and collectives per rank for the roofline.
 
-Each cell runs in this process as rank 0 of a ``fake`` process group of
+Each cell runs in this process as one rank of a ``fake`` process group of
 256 ranks (512 with ``--multi-pod``): parameters, optimizer state and
 inputs are ``meta`` DTensors laid out by ``parallel/sharding.py``'s
 ``spec_for``, and the step -- train (loss, backward, AdamW), prefill or
@@ -11,6 +11,17 @@ local ops and collectives DTensor turns the step into.  The kernels count
 their own work on ``meta`` (``kernels/ops.py``).  The roofline's peaks are
 the H100's data-sheet figures (``roofline/analysis.py``): bounds, not
 measurements.
+
+Rank 0 and the rank at the last ``model`` position (data 0, pod 0) can
+count different work: under causal context parallelism the later
+sequence slice scores more pairs.  Where a cell has such a layer
+(:func:`ranks_differ`), it runs as both ranks, and the roofline and the
+memory take the larger of each count; the JSON keeps both ranks' counts
+(``ranks``).  Elsewhere every ``model`` rank has the same shapes and rank
+0 alone runs.  ``top_products`` are the busier rank's by FLOPs and
+``top_collectives`` (the collectives by kind, payload, group and the
+port's source line, each with its share of the rank's collective bytes)
+the busier rank's by collective bytes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2_27b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --out results/dryrun_torch
@@ -36,7 +47,9 @@ import torch.distributed as dist
 from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import (ARCHS, cell_supported, get_config,
                                           input_specs)
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (PRODUCTION, make_production_mesh,
+                                     production_shape)
+from repro_torch.models.attention import head_layout
 from repro_torch.models.model import (abstract_params, cache_axes,
                                       params_logical_axes)
 from repro_torch.optim.adamw import adamw_init, tree_leaves
@@ -48,15 +61,35 @@ from repro_torch.train.train_step import (make_prefill_step, make_serve_step,
 
 
 @contextlib.contextmanager
-def fake_world(n: int):
-    """This process as rank 0 of a ``fake`` process group of ``n`` ranks
+def fake_world(n: int, rank: int = 0):
+    """This process as ``rank`` of a ``fake`` process group of ``n`` ranks
     (no other process, no communication)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
     try:
         yield
     finally:
         dist.destroy_process_group()
+        _forget_meshes()
+
+
+def _forget_meshes() -> None:
+    """Clear DTensor's caches of sharding decisions (the C++ dispatch's,
+    where the build has one, and the propagator's).  They are keyed by
+    the ops' specs, and a mesh's equality ignores the rank: the next
+    world's ops would get back specs holding this world's mesh, whose
+    process groups are gone."""
+    from torch.distributed.tensor import DTensor
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)
+    if native is not None:
+        native()
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cached in (prop.propagate_op_sharding,
+                   getattr(prop, "_propagate_tensor_meta_cached", None)):
+        if hasattr(cached, "cache_clear"):
+            cached.cache_clear()
 
 
 @contextlib.contextmanager
@@ -111,7 +144,7 @@ def run_step(cfg, shape, mesh):
     if shape.kind == "train":
         opt = adamw_init(p_dt)
         args["opt"] = opt
-        arg_bytes = _local_bytes(args)
+        arg_bytes = _local_bytes(_tree(args))
         with st:
             p_dt, opt, metrics = make_train_step(cfg)(p_dt, opt, batch)
         alias = _local_bytes(p_dt) + _local_bytes(_tree(opt))
@@ -131,6 +164,38 @@ def run_step(cfg, shape, mesh):
         alias = _local_bytes(cache)
         out_bytes = alias + _local_bytes(tok)
     return st, arg_bytes, out_bytes, alias
+
+
+def last_model_rank(multi_pod: bool = False) -> int:
+    """The rank at the last ``model`` position of the production mesh
+    (data 0, pod 0): its axes are row-major, ``model`` last."""
+    return PRODUCTION[multi_pod][0][-1] - 1
+
+
+def ranks_differ(cfg, shape, mesh) -> bool:
+    """Whether the last ``model`` position counts other work than rank 0:
+    only where a train or prefill step runs a causal self-attention whose
+    heads ``model`` does not divide (the ``"seq"`` layout, context
+    parallelism: each slice scores the pairs up to its own positions).
+    Every other layout gives each ``model`` rank the same shapes."""
+    if shape.kind == "decode" or "model" not in sh.axis_names(mesh):
+        return False
+    causal = cfg.mtp and shape.kind == "train" or any(
+        ls.shared_attn or (ls.mixer == "attn" and ls.attn_kind != "cross"
+                           and ls.causal)
+        for g in cfg.groups for ls in g.pattern)
+    return bool(causal) and head_layout(
+        mesh, cfg.n_heads, cfg.n_kv_heads) == "seq"
+
+
+def _run_rank(cfg, shape, n_dev: int, multi_pod: bool, rank: int):
+    with fake_world(n_dev, rank), _alltoall_kept():
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        sh.set_mesh(mesh)
+        try:
+            return run_step(cfg, shape, mesh)
+        finally:
+            sh.set_mesh(None)
 
 
 def _write(meta, out_dir, arch, shape_name, multi_pod):
@@ -162,32 +227,43 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     meta = {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
             "n_devices": n_dev}
     try:
-        with fake_world(n_dev), _alltoall_kept():
-            mesh = make_production_mesh(multi_pod=multi_pod,
-                                        device_type="cpu")
-            sh.set_mesh(mesh)
-            try:
-                st, arg_b, out_b, alias_b = run_step(cfg, shape, mesh)
-            finally:
-                sh.set_mesh(None)
+        ranks = [0]
+        if ranks_differ(cfg, shape, production_shape(multi_pod)):
+            ranks.append(last_model_rank(multi_pod))
+        runs = {r: _run_rank(cfg, shape, n_dev, multi_pod, r) for r in ranks}
+        counts = {r: {"flops": st.flops, "hbm_bytes": st.hbm_bytes,
+                      "hbm_bytes_raw": st.hbm_bytes_raw,
+                      "collective_bytes": st.coll.wire_bytes,
+                      "argument_bytes": arg_b, "output_bytes": out_b,
+                      "temp_bytes": st.peak_bytes, "alias_bytes": alias_b}
+                  for r, (st, arg_b, out_b, alias_b) in runs.items()}
+        most = {k: max(c[k] for c in counts.values()) for k in counts[0]}
+        by_flops = runs[max(ranks, key=lambda r: counts[r]["flops"])][0]
+        by_coll = runs[max(ranks, key=lambda r:
+                           counts[r]["collective_bytes"])][0]
         meta["model_flops"] = roof.analytic_model_flops(cfg, shape, n_dev)
-        rl = roof.Roofline(flops=st.flops, hbm_bytes=st.hbm_bytes,
-                           coll=st.coll, model_flops=meta["model_flops"],
-                           hbm_bytes_raw=st.hbm_bytes_raw)
-        mem = {"argument_bytes": arg_b, "output_bytes": out_b,
-               "temp_bytes": st.peak_bytes, "code_bytes": 0,
-               "alias_bytes": alias_b}
-        total = sum(v for v in mem.values() if v) - alias_b
+        rl = roof.Roofline(flops=most["flops"], hbm_bytes=most["hbm_bytes"],
+                           coll=by_coll.coll, model_flops=meta["model_flops"],
+                           hbm_bytes_raw=most["hbm_bytes_raw"])
+        mem = {k: most[k] for k in ("argument_bytes", "output_bytes",
+                                    "temp_bytes")}
+        mem.update(code_bytes=0, alias_bytes=most["alias_bytes"])
+        total = sum(v for v in mem.values() if v) - mem["alias_bytes"]
         mem["per_device_total_gib"] = round(total / 2**30, 3)
         meta.update({"status": "ok", "step_s": round(time.time() - t0, 1),
                      "memory": mem, "roofline": rl.as_dict(),
-                     "kernels": st.kernels,
-                     "top_products": st.top_products(), "ops": st.n_ops})
+                     "ranks": {str(r): c for r, c in counts.items()},
+                     "kernels": runs[0][0].kernels,
+                     "top_products": by_flops.top_products(),
+                     "top_collectives": by_coll.top_collectives(),
+                     "ops": runs[0][0].n_ops})
+        flops = "/".join(f"{counts[r]['flops']:.3e}" for r in ranks)
         print(f"[dryrun] {arch} x {shape_name} ({mesh_name}): OK "
               f"trace={time.time() - t0:.0f}s mem={total / 2**30:.2f}GiB "
               f"bottleneck={rl.bottleneck} "
               f"t_step>={rl.step_time_s * 1e3:.1f}ms "
-              f"useful={rl.useful_flops_fraction:.2f}", flush=True)
+              f"useful={rl.useful_flops_fraction:.2f} "
+              f"flops[rank {'/'.join(map(str, ranks))}]={flops}", flush=True)
     except Exception as e:  # noqa: BLE001 -- record failures as results
         meta.update({"status": "error", "error": f"{type(e).__name__}: {e}",
                      "trace": traceback.format_exc()[-2000:]})

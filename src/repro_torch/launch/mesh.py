@@ -27,9 +27,16 @@ def production_shape(multi_pod: bool = False) -> AbstractMesh:
 
 
 def _device_type(device_type: Optional[str]) -> str:
+    """``device_type``, else ``"cuda"``: a mesh never falls back to the
+    CPU on its own (pass ``"cpu"`` for that, as the dry-run and the tests
+    do)."""
     if device_type is not None:
         return device_type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a mesh runs on CUDA and no CUDA device is available; pass "
+            "device_type='cpu' to build it on the CPU")
+    return "cuda"
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -38,9 +45,9 @@ def make_production_mesh(*, multi_pod: bool = False,
     world size must be 256 (or 512 with ``multi_pod``): the dry-run
     starts a ``fake`` group of that size."""
     from torch.distributed.device_mesh import init_device_mesh
+    device_type = _device_type(device_type)
     shape, axes = PRODUCTION[multi_pod]
-    return init_device_mesh(_device_type(device_type), shape,
-                            mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(shape: Optional[Sequence[int]] = None,
@@ -49,8 +56,8 @@ def make_host_mesh(shape: Optional[Sequence[int]] = None,
     """A small mesh over the live process group's ranks (tests, examples,
     the card's ``dist`` phase); ``shape`` defaults to (world, 1)."""
     from torch.distributed.device_mesh import init_device_mesh
-    n = dist.get_world_size()
+    device_type = _device_type(device_type)
     if shape is None:
-        shape = (n, 1)
-    return init_device_mesh(_device_type(device_type), tuple(shape),
+        shape = (dist.get_world_size(), 1)
+    return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))

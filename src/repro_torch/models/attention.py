@@ -44,13 +44,14 @@ def _tp_size(mesh) -> int:
             if mesh is not None and "model" in shlib.axis_names(mesh) else 1)
 
 
-def _head_layout(mesh, H: int, Hkv: int) -> str:
+def head_layout(mesh, H: int, Hkv: int) -> str:
     """How a mesh's ``model`` axis splits attention in train and prefill:
     ``"heads"`` when it divides the heads and the kv heads; ``"groups"``
     when it divides the heads and each rank's heads share one kv head
     (stablelm's 32 / 8, llama-vision's 64 / 8 over 16): the queries split
-    by head, the kv heads whole on every rank; else ``"seq"`` (starcoder2's
-    36 heads, whisper's 12): each rank takes a slice of the sequence."""
+    by head, each rank projecting its one kv head (:func:`_flash_groups`);
+    else ``"seq"`` (starcoder2's 36 heads, whisper's 12): each rank takes a
+    slice of the sequence."""
     tp = _tp_size(mesh)
     if tp == 1 or (H % tp == 0 and Hkv % tp == 0):
         return "heads"
@@ -65,11 +66,10 @@ def _flash(q, k, v, *, causal, window, softcap_v, scale, impl=None):
     Under a mesh (DTensor q, k, v) every rank runs the kernel on its local
     shards, through ``local_map``: a kernel never sees a DTensor.  Batch
     goes over the FSDP axes and heads over ``model`` when the head counts
-    divide it.  When the heads divide it but the kv heads do not, the K/V
-    come whole over ``model`` and each rank takes the kv head its query
-    heads share.  Where the heads do not divide it, each rank takes a
-    slice of the query sequence (:func:`_flash_seq`; :func:`_attn_seq`
-    slices the products around it too)."""
+    divide it.  Where the heads do not divide it, each rank takes a slice
+    of the query sequence (:func:`_flash_seq`; :func:`_attn_seq` slices
+    the products around it too).  Where the heads divide it but the kv
+    heads do not, :func:`_flash_groups` runs instead."""
     mesh = shlib.get_mesh()
     kw = dict(causal=causal, window=window, softcap=softcap_v, scale=scale,
               impl=impl)
@@ -77,7 +77,7 @@ def _flash(q, k, v, *, causal, window, softcap_v, scale, impl=None):
         return kops.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), **kw)
     H, Hkv = q.shape[2], k.shape[2]
-    layout = _head_layout(mesh, H, Hkv)
+    layout = head_layout(mesh, H, Hkv)
     if layout == "seq":
         S = q.shape[1]
         rep, seq = _seq_layouts(mesh, q.shape[0])
@@ -85,25 +85,56 @@ def _flash(q, k, v, *, causal, window, softcap_v, scale, impl=None):
         out = _flash_seq(q, k, v, s_local=q.shape[1] // _tp_size(mesh),
                          rep=rep, seq=seq, **kw).redistribute(mesh, rep)
         return out[:, :S] if out.shape[1] != S else out
-    pl = lambda dims, t: shlib.layout(mesh, dims, t)
-    qpl = pl(("batch", None, "heads", None), q)
-    if layout == "heads":
-        kvpl = pl(("batch", None, "kv_heads", None), k)
-        return shlib.local_map(
-            lambda qs, ks, vs: kops.flash_attention(
-                qs.contiguous(), ks.contiguous(), vs.contiguous(), **kw),
-            qpl, (qpl, kvpl, kvpl))(q, k, v)
-    # "groups": H/tp query heads a rank, all of one kv head
-    kvpl = pl(("batch", None, None, None), k)
-    g0 = mesh.get_local_rank("model") * (H // _tp_size(mesh)) // (H // Hkv)
+    if layout == "groups":
+        raise ValueError("the groups layout's flash is _flash_groups")
+    qpl = shlib.layout(mesh, ("batch", None, "heads", None), q)
+    kvpl = shlib.layout(mesh, ("batch", None, "kv_heads", None), k)
+    return shlib.local_map(
+        lambda qs, ks, vs: kops.flash_attention(
+            qs.contiguous(), ks.contiguous(), vs.contiguous(), **kw),
+        qpl, (qpl, kvpl, kvpl))(q, k, v)
 
-    def body(qs, ks, vs):
-        return kops.flash_attention(qs.contiguous(),
-                                    ks[:, :, g0:g0 + 1].contiguous(),
-                                    vs[:, :, g0:g0 + 1].contiguous(), **kw)
-    kv_grad = shlib.partial_over(kvpl, qpl)    # each rank's own kv head
-    return shlib.local_map(body, qpl, (qpl, kvpl, kvpl),
-                           (qpl, kv_grad, kv_grad))(q, k, v)
+
+def _flash_groups(q, src, p, *, cfg, rope: bool, causal, window, scale,
+                  impl=None):
+    """The flash kernel in the ``"groups"`` layout (:func:`head_layout`):
+    each ``model`` rank's query heads (``q``, heads over ``model``) share
+    one kv head, so each rank projects that head's K and V itself from
+    ``src`` (B, T, D), which is whole over ``model`` (k normed and, with
+    ``rope``, rotated at positions 0..T-1), and runs the kernel on its own
+    heads: no collective, and 1/Hkv of the K/V products a rank.  The K/V
+    weights are whole over ``model`` (their kv heads do not divide it)."""
+    from torch.distributed.tensor import Partial
+    mesh = shlib.get_mesh()
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g0 = mesh.get_local_rank("model") * (H // _tp_size(mesh)) // (H // Hkv)
+    qpl = shlib.layout(mesh, ("batch", None, "heads", None), q)
+    spl = shlib.layout(mesh, ("batch", None, None), src)
+    wrep = list(shlib.placements(mesh, ()))
+    names = ["wk", "wv"] + (["k_scale"] if cfg.qk_norm else [])
+
+    def body(qs, xs, wk, wv, k_scale=None):
+        Bl, T, _ = xs.shape
+        k = linear(xs, wk[:, g0]).view(Bl, T, 1, hd)
+        v = linear(xs, wv[:, g0]).view(Bl, T, 1, hd)
+        if k_scale is not None:
+            k = rms_norm(k, k_scale, cfg.norm_eps)
+        if rope:
+            k = apply_rope(k, torch.arange(T, device=xs.device)[None],
+                           cfg.rope_theta, cfg.rope_pct)
+        return kops.flash_attention(
+            qs.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, softcap=cfg.attn_softcap, scale=scale, impl=impl)
+
+    # each rank's kv head: a share of src's and the weights' grads
+    model = [n == "model" for n in shlib.axis_names(mesh)]
+    sgrad = [Partial() if m else pl for m, pl in zip(model, spl)]
+    wgrad = [Partial() if m else pl for m, pl in
+             zip(model, shlib.partial_over(wrep, spl))]
+    ins = (qpl, spl) + (wrep,) * len(names)
+    grads = (qpl, sgrad) + (wgrad,) * len(names)
+    return shlib.local_map(body, qpl, ins, grads)(
+        q, src, *(p[n] for n in names))
 
 
 def _seq_layouts(mesh, B: int):
@@ -125,12 +156,14 @@ def _pad_seq(x, tp: int, rep):
     return shlib.local_map(lambda t: F.pad(t, widths), rep, (rep,))(x)
 
 
-def _kv_on_slices(src, p, *, cfg, rope: bool):
+def _kv_on_slices(src, p, *, cfg, rope: bool, gather: bool = True):
     """K and V of ``src`` (B, T, D), projected by each ``model`` rank on its
     slice of the T positions (k normed and rotated there, at the slice's
-    own positions) and gathered whole over ``model``: (B, T, Hkv, hd)
-    each, laid out as the stream is.  The kv weights are whole over
-    ``model`` here, so every rank would otherwise project all of T."""
+    own positions): (B, T, Hkv, hd) each, with ``gather`` gathered whole
+    over ``model`` (laid out as the stream is), else left on the slices
+    (T over ``model``: a prefill's self-attention cache where the kv
+    heads do not divide it).  The kv weights are whole over ``model``
+    here, so every rank would otherwise project all of T."""
     mesh = shlib.get_mesh()
     tp = _tp_size(mesh)
     B, T, _ = src.shape
@@ -157,7 +190,8 @@ def _kv_on_slices(src, p, *, cfg, rope: bool):
     grads = (seq,) + tuple(shlib.partial_over(w, seq) for w in ins[1:])
     k, v = shlib.local_map(proj, (seq, seq), ins, grads)(
         srcp, *(p[n] for n in names))
-    k, v = k.redistribute(mesh, rep), v.redistribute(mesh, rep)
+    if gather:
+        k, v = k.redistribute(mesh, rep), v.redistribute(mesh, rep)
     if srcp.shape[1] != T:
         k, v = k[:, :T], v[:, :T]
     return k, v
@@ -422,7 +456,7 @@ def apply_attn(
     scale = _attn_scale(cfg, hd)
     mesh = shlib.get_mesh()
     layout = ("heads" if mode == "decode" or mesh is None
-              or not shlib.is_dtensor(x) else _head_layout(mesh, H, Hkv))
+              or not shlib.is_dtensor(x) else head_layout(mesh, H, Hkv))
     if layout == "seq":
         return _attn_seq(p, x, kv_source, cfg=cfg, kind=kind, mode=mode,
                          causal=causal, window=window, scale=scale, impl=impl)
@@ -442,16 +476,22 @@ def apply_attn(
             out = _decode(q, k, v, kv_len, softcap=cfg.attn_softcap,
                           scale=scale)
             new_cache = cache
-        else:
-            if layout == "groups":
-                k, v = _kv_on_slices(kv_source, p, cfg=cfg, rope=False)
-            else:
-                T = kv_source.shape[1]
-                k = linear(kv_source, p["wk"].flatten(1)).view(B, T, Hkv, hd)
-                v = linear(kv_source, p["wv"].flatten(1)).view(B, T, Hkv, hd)
-                if cfg.qk_norm:
-                    k = rms_norm(k, p["k_scale"], cfg.norm_eps)
+        elif layout == "groups":
             if cfg.qk_norm:
+                q = rms_norm(q, p["q_scale"], cfg.norm_eps)
+            out = _flash_groups(q, kv_source, p, cfg=cfg, rope=False,
+                                causal=False, window=0, scale=scale,
+                                impl=impl)
+            new_cache = None
+            if mode == "prefill":      # the cross cache: whole over model
+                k, v = _kv_on_slices(kv_source, p, cfg=cfg, rope=False)
+                new_cache = {"k": k, "v": v}
+        else:
+            T = kv_source.shape[1]
+            k = linear(kv_source, p["wk"].flatten(1)).view(B, T, Hkv, hd)
+            v = linear(kv_source, p["wv"].flatten(1)).view(B, T, Hkv, hd)
+            if cfg.qk_norm:
+                k = rms_norm(k, p["k_scale"], cfg.norm_eps)
                 q = rms_norm(q, p["q_scale"], cfg.norm_eps)
             out = _flash(q, k, v, causal=False, window=0,
                          softcap_v=cfg.attn_softcap, scale=scale, impl=impl)
@@ -464,11 +504,14 @@ def apply_attn(
             q = rms_norm(q, p["q_scale"], cfg.norm_eps)
         q = apply_rope(q, torch.arange(S, device=x.device)[None],
                        cfg.rope_theta, cfg.rope_pct)
-        k, v = _kv_on_slices(x, p, cfg=cfg, rope=True)
-        out = _flash(q, k, v, causal=causal, window=window,
-                     softcap_v=cfg.attn_softcap, scale=scale, impl=impl)
+        out = _flash_groups(q, x, p, cfg=cfg, rope=True, causal=causal,
+                            window=window, scale=scale, impl=impl)
         o = linear(out.reshape(B, S, H * hd), p["wo"].flatten(0, 1))
-        return o, ({"k": k, "v": v} if mode == "prefill" else None)
+        if mode != "prefill":
+            return o, None
+        # the cache as decode reads it: its sequence over ``model``
+        k, v = _kv_on_slices(x, p, cfg=cfg, rope=True, gather=False)
+        return o, {"k": k, "v": v}
 
     k = linear(x, p["wk"].flatten(1)).view(B, S, Hkv, hd)
     v = linear(x, p["wv"].flatten(1)).view(B, S, Hkv, hd)

@@ -8,7 +8,9 @@ Decode caches:
 Prefill and train run the chunked scan (``kernels/linear_scan.py``; its
 plain version on the CPU); decode runs one recurrent step in plain
 PyTorch, as the reference does.  Decode writes its new states INTO the
-stacked cache tensors, in place; the reference returns new arrays.
+stacked cache tensors, in place; the reference returns new arrays.  Under
+a mesh, Mamba2's train and prefill run each ``model`` rank on its own
+heads (:func:`_mamba2_sharded`).
 """
 
 from __future__ import annotations
@@ -136,15 +138,31 @@ def apply_mamba2(
     layer_idx=None,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    B, S, D = x.shape
-    d_inner, nh, ds, dc = mamba2_dims(cfg)
-    hd = cfg.ssm.head_dim
-    xt = x.dtype
-    conv_w = p["conv_w"].to(xt)
-    conv_b = p["conv_b"].to(xt)
+    if mode != "decode" and _heads_split(x, cfg):
+        g, new_cache = _mamba2_sharded(p, x, cfg=cfg, mode=mode, impl=impl)
+    else:
+        xt = x.dtype
+        zxbcdt = shlib.whole_last_dim(linear(x, p["in_proj"]))
+        z, xbc, dt = _mamba2_split(cfg, zxbcdt)
+        g, new_cache = _mamba2_mix(
+            z, xbc, dt, p["conv_w"].to(xt), p["conv_b"].to(xt), p["A_log"],
+            p["D_skip"], p["dt_bias"], cfg=cfg, mode=mode, cache=cache,
+            layer_idx=layer_idx, impl=impl)
+    y = rms_norm(g, p["gate_norm"], cfg.norm_eps)
+    return linear(y, p["out_proj"]), new_cache
 
-    zxbcdt = shlib.whole_last_dim(linear(x, p["in_proj"]))
-    z, xbc, dt = _mamba2_split(cfg, zxbcdt)
+
+def _mamba2_mix(z, xbc, dt, conv_w, conv_b, A_log, D_skip, dt_bias, *, cfg,
+                mode, cache=None, layer_idx=None, impl=None):
+    """The mixer between the projections: the causal conv over the x, B
+    and C channels ``xbc``, the scan (decode: one step) over the heads of
+    ``dt``, the skip, and the gate: (y * silu(z), new cache).  The heads
+    (and the x channels) may be one rank's share; B and C are whole."""
+    _, _, ds, dc = mamba2_dims(cfg)
+    hd = cfg.ssm.head_dim
+    B, S = xbc.shape[:2]
+    d_inner = xbc.shape[-1] - 2 * ds
+    nh = dt.shape[-1]
 
     if mode == "decode":
         conv_state = _st_read(cache["conv"], layer_idx)  # (B, dc-1, ch)
@@ -166,8 +184,8 @@ def apply_mamba2(
     xs = xbc_conv[..., :d_inner].reshape(B, -1, nh, hd)
     Bmat = xbc_conv[..., d_inner: d_inner + ds]          # (B,T,ds) single group
     Cmat = xbc_conv[..., d_inner + ds:]                  # (B,T,ds)
-    dt = _softplus(dt.float() + p["dt_bias"].float())
-    log_decay = -torch.exp(p["A_log"].float())[None, None] * dt  # (B,T,nh) f32
+    dt = _softplus(dt.float() + dt_bias.float())
+    log_decay = -torch.exp(A_log.float())[None, None] * dt  # (B,T,nh) f32
 
     # B and C shared by every head: stride-0 views, never copied per head
     T = Bmat.shape[1]
@@ -187,10 +205,93 @@ def apply_mamba2(
         new_cache = ({"conv": new_conv, "ssm": final_state}
                      if mode == "prefill" else None)
 
-    y = y + p["D_skip"].to(y.dtype)[None, None, :, None] * xs
+    y = y + D_skip.to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(B, -1, d_inner)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return linear(y, p["out_proj"]), new_cache
+    return y * F.silu(z), new_cache
+
+
+def _heads_split(x, cfg) -> bool:
+    """Whether ``x`` is a DTensor on a mesh whose ``model`` axis (if any)
+    divides Mamba2's heads: :func:`_mamba2_sharded`'s layout."""
+    if not shlib.is_dtensor(x):
+        return False
+    mesh = x.device_mesh
+    tp = (shlib.axis_size(mesh, "model")
+          if "model" in shlib.axis_names(mesh) else 1)
+    return mamba2_dims(cfg)[1] % tp == 0
+
+
+def _mamba2_sharded(p, x, *, cfg, mode, impl=None):
+    """:func:`_mamba2_mix` under a mesh, train and prefill, each ``model``
+    rank on its own heads (``local_map``): the weight moves, not the
+    activation.  in_proj's columns z | x | B | C | dt, and the conv's
+    channels x | B | C, are cut at boundaries their ``model`` shards do
+    not follow, so each rank takes the weights whole over ``model`` (one
+    gather a layer) and projects its heads' z, x and dt columns --
+    the heads ``out_proj``'s rows, the gate norm and the per-head vectors
+    already follow -- and B and C, which every head shares, whole.  The
+    gate (y * silu(z)) comes out with its channels over ``model``: the
+    gated norm sums squares over them (a per-token all-reduce) and
+    ``out_proj`` is row-parallel.  A prefill's ssm state comes out over
+    ``model`` by heads, its conv tail whole over ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = shlib.axis_names(mesh)
+    tp = shlib.axis_size(mesh, "model") if "model" in names else 1
+    r = mesh.get_local_rank("model") if "model" in names else 0
+    d_inner, nh, ds, _ = mamba2_dims(cfg)
+    di, nl = d_inner // tp, nh // tp
+    xt = x.dtype
+
+    xpl = shlib.layout(mesh, ("batch", None, None), x)
+
+    def over_model(dim):
+        return [Shard(dim) if n == "model" else q for n, q in zip(names, xpl)]
+
+    rep = [Replicate()] * mesh.ndim
+    # a weight whole on every rank meets other tokens over the FSDP axes
+    # and is used on other columns over ``model``: its grad sums over both,
+    # reduce-scattered back to its ``model`` shard at the gather and left
+    # ``Partial`` over the FSDP axes for FSDP's reduce-scatter
+    wgrad = [Partial() if n == "model" or isinstance(q, Shard) else q
+             for n, q in zip(names, xpl)]
+
+    def whole(w):
+        back = [q if n == "model" else g
+                for n, q, g in zip(names, w.placements, wgrad)]
+        return shlib.relayout(w, rep, back)
+
+    hpl = shlib.layout(mesh, ("heads",), p["A_log"])
+    hgrad = shlib.partial_over(hpl, xpl)
+    xgrad = [Partial() if n == "model" else q for n, q in zip(names, xpl)]
+
+    def body(xl, w, cw, cb, a_log, d_skip, dt_bias):
+        own = slice(r * di, (r + 1) * di)
+        cols = torch.cat([w[:, own], w[:, d_inner:][:, own],
+                          w[:, 2 * d_inner: 2 * d_inner + 2 * ds],
+                          w[:, 2 * (d_inner + ds) + r * nl:][:, :nl]], dim=1)
+        z, xbc, dt = torch.split(linear(xl, cols), (di, di + 2 * ds, nl),
+                                 dim=-1)
+        chans = lambda c: torch.cat([c[..., own], c[..., d_inner:]], -1)
+        g, c = _mamba2_mix(z, xbc, dt, chans(cw).to(xt), chans(cb).to(xt),
+                           a_log, d_skip, dt_bias, cfg=cfg, mode=mode,
+                           impl=impl)
+        if c is None:
+            return g
+        return g, c["conv"][..., :di], c["conv"][..., di:], c["ssm"]
+
+    outs = (over_model(2),) + ((over_model(2), xpl, over_model(1))
+                               if mode == "prefill" else ())
+    got = shlib.local_map(
+        body, outs if mode == "prefill" else outs[0],
+        (xpl, rep, rep, rep, hpl, hpl, hpl),
+        (xgrad, wgrad, wgrad, wgrad, hgrad, hgrad, hgrad))(
+        x, whole(p["in_proj"]), whole(p["conv_w"]), whole(p["conv_b"]),
+        p["A_log"], p["D_skip"], p["dt_bias"])
+    if mode != "prefill":
+        return got, None
+    g, conv_x, conv_bc, state = got
+    return g, {"conv": torch.cat([conv_x, conv_bc], dim=-1), "ssm": state}
 
 
 # ============================================================================

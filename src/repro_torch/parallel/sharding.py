@@ -266,6 +266,14 @@ def constrain(x, dims: Sequence[Optional[str]]):
     return _Pin.apply(x, want, want)
 
 
+def relayout(x, want, grad_want):
+    """DTensor ``x`` redistributed to placements ``want``, and its
+    gradient to ``grad_want`` (:class:`_Pin`): where a gradient should
+    stay ``Partial`` over an axis for a later reduce-scatter, not be
+    all-reduced here as DTensor's own redistribution would."""
+    return _Pin.apply(x, tuple(want), tuple(grad_want))
+
+
 def whole_last_dim(x):
     """A DTensor's last dim gathered whole (over the mesh axes that shard
     it), its gradient cut back to the shards: for a column-parallel

@@ -22,7 +22,12 @@ DTensor's sharding propagation turns each global op into -- and records:
   (saved activations included), for the dry-run's ``temp_bytes``;
 * FLOPs per product, keyed by the op and its input shapes (a kernel by
   its name and its inputs' shapes): :meth:`OpStats.top_products` says
-  which products make a rank's FLOPs, the dry-run's ``top_products``.
+  which products make a rank's FLOPs, the dry-run's ``top_products``;
+* wire bytes per collective, keyed by its kind, payload shape and dtype,
+  group size and the port's source line that issued it (forward, or the
+  forward line whose backward issued it): :meth:`OpStats.top_collectives`
+  says where a rank's collective bytes go, the dry-run's
+  ``top_collectives``.
 
 Python loops run their body once per trip, so a layer loop counts once
 per layer by nature (the reference's analyzer had to multiply while-loop
@@ -31,6 +36,8 @@ bodies by their trip counts).
 
 from __future__ import annotations
 
+import os
+import sys
 import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -69,6 +76,55 @@ _MOVEMENT = {"copy_", "_to_copy", "clone", "cat", "stack", "contiguous",
              "full", "arange", "lift_fresh", "detach"}
 
 
+# a collective's source: the innermost frame in one of these packages of the
+# port, but for the sharding helpers, so that a pin names its caller
+_SOURCE_DIRS = tuple(os.sep + os.path.join("repro_torch", d) + os.sep
+                     for d in ("models", "train", "parallel"))
+_NOT_SOURCE = os.path.join("repro_torch", "parallel", "sharding.py")
+
+
+def _port_path(filename: str) -> Optional[str]:
+    """``filename`` as ``repro_torch/...`` when it can be a source."""
+    if filename.endswith(_NOT_SOURCE) or not any(
+            d in filename for d in _SOURCE_DIRS):
+        return None
+    return filename[filename.rindex(os.sep + "repro_torch" + os.sep) + 1:]
+
+
+def _node_source(node) -> Optional[str]:
+    """The innermost source frame of the forward stack anomaly mode
+    recorded when autograd ``node`` was made."""
+    stack = node.metadata.get("traceback_") or ()
+    for entry in reversed(stack):
+        line = entry.lstrip().split("\n", 1)[0]       # File "...", line N,
+        if not line.startswith('File "'):
+            continue
+        filename, rest = line[6:].split('", line ', 1)
+        path = _port_path(filename)
+        if path is not None:
+            return f"{path}:{rest.split(',', 1)[0]}"
+    return None
+
+
+def collective_source() -> Tuple[str, str]:
+    """(the port's source line of the collective being issued, "forward"
+    or "backward").  The innermost frame of the port on the live stack;
+    in the backward pass, where the stack reaches the autograd engine
+    first (a gradient op, a pin's backward), the line of the forward op
+    whose gradient issues it, as anomaly mode recorded it; "unknown" when
+    neither names a line of the port."""
+    node = torch._C._current_autograd_node()
+    f = sys._getframe(1)
+    while f is not None and f.f_code.co_name != "_engine_run_backward":
+        path = _port_path(f.f_code.co_filename)
+        if path is not None:     # forward code (in the backward: remat's)
+            return (f"{path}:{f.f_lineno}",
+                    "forward" if node is None else "backward")
+        f = f.f_back
+    src = _node_source(node) if node is not None else None
+    return src or "unknown", "forward" if node is None else "backward"
+
+
 def _under_fake() -> bool:
     return torch._C._get_dispatch_mode(
         torch._C._TorchDispatchModeKey.FAKE) is not None
@@ -100,6 +156,7 @@ class OpStats(TorchDispatchMode):
     live_bytes: int = 0
     peak_bytes: int = 0
     products: Dict[Tuple[str, Tuple], float] = field(default_factory=dict)
+    by_source: Dict[Tuple, List[float]] = field(default_factory=dict)
 
     def __post_init__(self):
         super().__init__()
@@ -111,10 +168,15 @@ class OpStats(TorchDispatchMode):
         self._hooks = torch.autograd.graph.saved_tensors_hooks(
             lambda t: t, lambda t: t)    # saved tensors keep their object
         self._hooks.__enter__()
+        # every autograd node keeps its forward stack: a backward
+        # collective's source (:func:`collective_source`)
+        self._anomaly = torch.autograd.set_detect_anomaly(True,
+                                                          check_nan=False)
         return super().__enter__()
 
     def __exit__(self, *exc):
         super().__exit__(*exc)
+        self._anomaly.__exit__(*exc)
         self._hooks.__exit__(*exc)
         _ACTIVE.remove(self)
 
@@ -131,9 +193,21 @@ class OpStats(TorchDispatchMode):
         self.live_bytes -= n
 
     # -- recording -----------------------------------------------------------
-    def add_collective(self, kind: str, payload: float, n: int) -> None:
+    def add_collective(self, kind: str, payload: float, n: int,
+                       shape: Tuple = (), dtype=None,
+                       source: Tuple[str, str] = ("unknown", "forward")
+                       ) -> None:
+        """One collective of ``payload`` bytes over ``n`` ranks; ``shape``
+        and ``dtype`` its payload's, ``source`` (line, pass) where the port
+        issued it (:func:`collective_source`)."""
+        wire = ring_bytes(kind, payload, n)
         self.collectives.append((kind, float(payload), int(n)))
-        self.coll.add(kind, ring_bytes(kind, payload, n))
+        self.coll.add(kind, wire)
+        key = (kind, tuple(shape), str(dtype).replace("torch.", ""), int(n),
+               *source)
+        got = self.by_source.setdefault(key, [0, 0.0])
+        got[0] += 1
+        got[1] += wire
 
     def _tally(self, op: str, shapes: Tuple, flops: float) -> None:
         key = (op, shapes)
@@ -171,16 +245,19 @@ class OpStats(TorchDispatchMode):
                 _resolve_process_group)
             n = _resolve_process_group(group).size()
             kind = _FUNCOL[name]
-            payload = (_nbytes(outs[0]) if kind == "all-gather"
-                       else _nbytes(ins[0]))
-            self.add_collective(kind, payload, n)
+            t = outs[0] if kind == "all-gather" else ins[0]
+            self.add_collective(kind, _nbytes(t), n, t.shape, t.dtype,
+                                collective_source())
             return out
         if ns == "c10d" and name in _C10D:
             pg = next((a for a in args if hasattr(a, "size")
                        and not isinstance(a, torch.Tensor)), None)
             n = pg.size() if pg is not None else 2
             kind = _C10D[name]
-            self.add_collective(kind, sum(_nbytes(t) for t in ins), n)
+            self.add_collective(kind, sum(_nbytes(t) for t in ins), n,
+                                ins[0].shape if ins else (),
+                                ins[0].dtype if ins else None,
+                                collective_source())
             return out
         if ns in ("_c10d_functional", "c10d"):
             return out                      # wait_tensor, recv, barrier
@@ -212,6 +289,19 @@ class OpStats(TorchDispatchMode):
         return [{"op": op, "shapes": [list(s) for s in shapes],
                  "flops": f, "share": f / self.flops if self.flops else 0.0}
                 for (op, shapes), f in top]
+
+    def top_collectives(self, n: Optional[int] = None) -> List[Dict]:
+        """The collectives by (kind, payload shape and dtype, group size,
+        source line, pass), the most wire bytes first (all of them, or
+        the first ``n``): each with its count, its wire bytes and their
+        share of all of this rank's collective bytes."""
+        top = sorted(self.by_source.items(), key=lambda kv: -kv[1][1])
+        total = self.coll.wire_bytes
+        return [{"kind": kind, "shape": list(shape), "dtype": dtype,
+                 "group": g, "source": src, "pass": pas, "count": c,
+                 "bytes": b, "share": b / total if total else 0.0}
+                for (kind, shape, dtype, g, src, pas), (c, b)
+                in top[:n]]
 
     def as_dict(self) -> Dict:
         return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,

@@ -23,10 +23,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import apply_attn
-from repro_torch.models.model import apply_model
+from repro_torch.models.model import apply_model, cache_axes
 from repro_torch.parallel.sharding import (argmax_last, backward_under_mesh,
-                                          is_dtensor, under_mesh, unshard,
-                                          vocab_ids)
+                                          constrain, is_dtensor, under_mesh,
+                                          unshard, vocab_ids)
 from repro_torch.optim.adamw import (AdamWState, adamw_update,
                                      cosine_schedule, tree_leaves, tree_map,
                                      tree_unflatten)
@@ -144,13 +144,29 @@ def make_train_step(cfg: ArchConfig, lr=None, impl: Optional[str] = None,
 
 
 def make_prefill_step(cfg: ArchConfig, impl: Optional[str] = None):
+    """``prefill_step(params, tokens, frontend=None) -> (last logits,
+    cache)``.  Under a mesh both come out as the serve step reads them:
+    the cache laid out by ``cache_axes``, the logits over ("batch",
+    "vocab") -- the layout the reference's dry-run pins its prefill's
+    outputs to -- so the redistribution is the step's own work, counted
+    with it, and a cache handed to decode is never re-laid there."""
+
     def prefill_step(params, tokens, frontend=None):
         logits, cache, _ = apply_model(params, tokens, cfg=cfg,
                                        mode="prefill", frontend=frontend,
                                        impl=impl)
-        return logits[:, -1], cache
+        return (constrain(logits[:, -1], ("batch", "vocab")),
+                _laid_out(cache, cache_axes(cfg)))
 
     return prefill_step
+
+
+def _laid_out(tree, axes):
+    """Every DTensor leaf of ``tree`` redistributed to its logical axes
+    (``axes``, a matching tree); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _laid_out(v, axes[k]) for k, v in tree.items()}
+    return constrain(tree, axes)
 
 
 def make_serve_step(cfg: ArchConfig, impl: Optional[str] = None):

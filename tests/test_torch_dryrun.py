@@ -30,11 +30,18 @@ def _dryrun(args):
     return r.stdout
 
 
-def test_single_pod_cell_runs(tmp_path):
+@pytest.fixture(scope="module")
+def rwkv6_decode(tmp_path_factory):
+    """rwkv6 decode_32k through the CLI: (its output, its JSON)."""
+    tmp = tmp_path_factory.mktemp("rwkv6_decode")
     out = _dryrun(["--arch", "rwkv6_1p6b", "--shape", "decode_32k",
-                   "--out", str(tmp_path)])
+                   "--out", str(tmp)])
+    return out, json.loads((tmp / "rwkv6_1p6b_decode_32k.json").read_text())
+
+
+def test_single_pod_cell_runs(rwkv6_decode):
+    out, d = rwkv6_decode
     assert "OK" in out
-    d = json.loads((tmp_path / "rwkv6_1p6b_decode_32k.json").read_text())
     assert d["status"] == "ok"
     assert d["n_devices"] == 256
     r = d["roofline"]
@@ -46,6 +53,123 @@ def test_single_pod_cell_runs(tmp_path):
     assert 0 < len(top) <= 10
     assert sum(t["flops"] for t in top) <= r["flops_per_device"]
     assert all(t["share"] == t["flops"] / r["flops_per_device"] for t in top)
+
+
+def test_top_collectives_name_port_lines(rwkv6_decode):
+    """Every collective of a cell is in its tally, each entry named by a
+    line of the port's models / train / parallel code that exists."""
+    _, d = rwkv6_decode
+    top, total = d["top_collectives"], d["roofline"][
+        "collective_bytes_per_device"]
+    assert top and sum(t["share"] for t in top) == pytest.approx(1.0,
+                                                                 abs=1e-12)
+    assert all(t["share"] == t["bytes"] / total for t in top)
+    assert sum(t["count"] for t in top) == d["roofline"]["collective_count"]
+    assert [t["bytes"] for t in top] == sorted(
+        (t["bytes"] for t in top), reverse=True)
+    for t in top:
+        path, line = t["source"].rsplit(":", 1)
+        assert path.split("/")[:2] in (["repro_torch", "models"],
+                                       ["repro_torch", "train"],
+                                       ["repro_torch", "parallel"]), t
+        assert not path.endswith("sharding.py"), t
+        lines = (ROOT / "src" / path).read_text().splitlines()
+        assert 1 <= int(line) <= len(lines), t
+        assert t["pass"] == "forward", t        # decode: no backward
+
+
+def test_top_collectives_shares_exact():
+    """The per-collective tally on a loop-free chain: wire bytes by (kind,
+    payload shape and dtype, group, source line, pass), a repeated
+    collective summed, its shares exact; a pin's collective named by its
+    caller's line (``models/model.py``'s residual sum, not
+    ``parallel/sharding.py``), one outside the port "unknown"."""
+    code = """
+import inspect, json, torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model
+from repro_torch.parallel import sharding as sh
+from repro_torch.roofline.op_stats import OpStats
+lines, first = inspect.getsourcelines(model._residual)
+at = first + next(i for i, ln in enumerate(lines) if "return constrain" in ln)
+with fake_world(4):
+    mesh = make_host_mesh((4,), ("model",), device_type="cpu")
+    sh.set_mesh(mesh)
+    def dt(shape, pl):
+        return DTensor.from_local(torch.empty(shape, device="meta"), mesh,
+                                  [pl], run_check=False)
+    x, o, a = dt((2, 8, 16), Replicate()), dt((2, 8, 16), Partial()), \
+        dt((8, 32), Shard(0))
+    with OpStats() as st:
+        model._residual(x, o)
+        a.redistribute(mesh, [Replicate()])
+        a.redistribute(mesh, [Replicate()])
+    sh.set_mesh(None)
+print(json.dumps({"at": at, "top": st.top_collectives(),
+                  "total": st.coll.wire_bytes}))
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    gather = ring_bytes("all-gather", 32 * 32 * 4, 4) * 2
+    reduce = ring_bytes("all-reduce", 2 * 8 * 16 * 4, 4)
+    assert got["total"] == gather + reduce
+    assert got["top"] == [
+        {"kind": "all-gather", "shape": [32, 32], "dtype": "float32",
+         "group": 4, "source": "unknown", "pass": "forward", "count": 2,
+         "bytes": gather, "share": gather / (gather + reduce)},
+        {"kind": "all-reduce", "shape": [2, 8, 16], "dtype": "float32",
+         "group": 4, "source": f"repro_torch/models/model.py:{got['at']}",
+         "pass": "forward", "count": 1, "bytes": reduce,
+         "share": reduce / (gather + reduce)}]
+    assert sum(t["share"] for t in got["top"]) == 1.0
+
+
+def test_train_cell_argument_bytes_count_the_optimizer_state():
+    """A train cell's arguments are the parameters, the batch and AdamW's
+    state (its step, m and v): the bytes the step reads and aliases, on a
+    small cell (olmoe-smoke, B=4 x S=16 on data=2 x model=4)."""
+    code = """
+import dataclasses
+from repro_torch.configs.base import SHAPES
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.parallel import sharding as sh
+cfg = get_smoke_config("olmoe_1b_7b")
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=16, global_batch=4)
+with dryrun.fake_world(8), dryrun._alltoall_kept():
+    mesh = make_host_mesh((2, 4), device_type="cpu")
+    sh.set_mesh(mesh)
+    st, arg_b, out_b, alias_b = dryrun.run_step(cfg, shape, mesh)
+    sh.set_mesh(None)
+    params = dryrun._local_bytes(sh.tree_distribute(
+        mesh, dryrun.abstract_params(cfg), dryrun.params_logical_axes(cfg)))
+print(arg_b, alias_b, params)
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    arg_b, alias_b, params = map(int, r.stdout.split()[-3:])
+    batch = 2 * (4 // 2) * 16 * 4          # tokens, targets: int32, data=2
+    assert alias_b > 2 * params             # m and v beside the parameters
+    assert arg_b == alias_b + batch
+
+
+def test_mesh_never_falls_back_to_the_cpu(monkeypatch):
+    """With no ``device_type`` a mesh is CUDA's; without a card it raises
+    rather than picking the CPU (the dry-run and the tests pass "cpu")."""
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_production_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_host_mesh((2, 4))
 
 
 def test_multi_pod_cell_runs(tmp_path):

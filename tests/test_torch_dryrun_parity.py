@@ -20,7 +20,19 @@ port did before its layout was repaired, and a control:
   stablelm decode_32k, whisper train_4k;
 * a gradient left ``Partial`` over ``model`` made the backward redo a
   product at full width: gemma2 train_4k;
-* codeqwen decode_32k, at the reference's count before the repair."""
+* codeqwen decode_32k, at the reference's count before the repair.
+
+And the repairs of the sharded step's collectives and outputs:
+
+* Mamba2's in_proj output was gathered whole on every ``model`` rank,
+  and each slice of its conv output again: zamba2 prefill_32k and
+  train_4k's collective bytes;
+* the "groups" layout gathered its K/V whole: stablelm prefill_32k's;
+* a prefill's cache came out whole over ``model``, not in the layout
+  decode reads: every prefill cell's output bytes (whisper prefill_32k
+  too);
+* rank 0 alone was counted, the causal context-parallel rank that scores
+  the fewest pairs: starcoder2 and whisper prefill_32k's busiest rank."""
 
 import json
 import subprocess
@@ -35,11 +47,20 @@ CELLS = [("olmoe_1b_7b", "decode_32k"), ("deepseek_v3_671b", "decode_32k"),
          ("rwkv6_1p6b", "long_500k"), ("starcoder2_7b", "train_4k"),
          ("starcoder2_7b", "prefill_32k"), ("stablelm_12b", "decode_32k"),
          ("whisper_small", "train_4k"), ("gemma2_27b", "train_4k"),
-         ("codeqwen15_7b", "decode_32k")]
+         ("codeqwen15_7b", "decode_32k"), ("zamba2_2p7b", "prefill_32k"),
+         ("zamba2_2p7b", "train_4k"), ("stablelm_12b", "prefill_32k"),
+         ("whisper_small", "prefill_32k")]
 MOE_DECODE = [("olmoe_1b_7b", "decode_32k"),
               ("deepseek_v3_671b", "decode_32k")]
+GATHERED = [("zamba2_2p7b", "prefill_32k"), ("zamba2_2p7b", "train_4k"),
+            ("stablelm_12b", "prefill_32k")]
+PREFILL = [c for c in CELLS if c[1] == "prefill_32k"]
+CONTEXT_PARALLEL = [("starcoder2_7b", "prefill_32k"),
+                    ("whisper_small", "prefill_32k")]
 FLOPS_LIMIT = 1.10          # the port's FLOPs per device over the reference's
 COLLECTIVE_LIMIT = 2.0      # its collective bytes, the MoE decode cells
+GATHERED_LIMIT = 1.10       # its collective bytes, the cells that gathered
+OUTPUT_LIMIT = 1.05         # a prefill's output bytes (logits and cache)
 
 REFERENCE = """
 import os, sys
@@ -73,7 +94,8 @@ for cell in sys.argv[2:]:
 
 
 @pytest.fixture(scope="module")
-def grids(tmp_path_factory):
+def cells(tmp_path_factory):
+    """Each cell's dry-run JSON: (the reference's, the port's)."""
     tmp = tmp_path_factory.mktemp("dryrun_parity")
     cells = [f"{a}:{s}" for a, s in CELLS]
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
@@ -90,8 +112,15 @@ def grids(tmp_path_factory):
     def load(name, arch, shape):
         d = json.loads((tmp / name / f"{arch}_{shape}.json").read_text())
         assert d["status"] == "ok", (name, arch, shape, d.get("error"))
-        return d["roofline"]
+        return d
     return {cell: (load("ref", *cell), load("port", *cell)) for cell in CELLS}
+
+
+@pytest.fixture(scope="module")
+def grids(cells):
+    """Each cell's rooflines: (the reference's, the port's)."""
+    return {cell: (ref["roofline"], port["roofline"])
+            for cell, (ref, port) in cells.items()}
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}-{c[1]}")
@@ -107,3 +136,111 @@ def test_moe_decode_collective_bytes_within_reference(grids, cell):
     ratio = (port["collective_bytes_per_device"]
              / ref["collective_bytes_per_device"])
     assert ratio <= COLLECTIVE_LIMIT, (cell, ratio)
+
+
+@pytest.mark.parametrize("cell", GATHERED, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_collective_bytes_within_reference(grids, cell):
+    ref, port = grids[cell]
+    ratio = (port["collective_bytes_per_device"]
+             / ref["collective_bytes_per_device"])
+    assert ratio <= GATHERED_LIMIT, (cell, ratio)
+
+
+@pytest.mark.parametrize("cell", PREFILL, ids=lambda c: c[0])
+def test_prefill_outputs_in_the_decode_layout(cells, cell):
+    """The prefill's cache and last logits come out laid out as decode
+    reads them, as the reference pins them: no more bytes a device."""
+    ref, port = cells[cell]
+    ratio = port["memory"]["output_bytes"] / ref["memory"]["output_bytes"]
+    assert ratio <= OUTPUT_LIMIT, (cell, ratio)
+
+
+@pytest.mark.parametrize("cell", CONTEXT_PARALLEL, ids=lambda c: c[0])
+def test_busiest_rank_counted(cells, cell):
+    """Causal context parallelism: the last ``model`` position scores more
+    pairs than rank 0, and the cell's FLOPs are its count, within the
+    reference's per-device count."""
+    ref, port = cells[cell]
+    ranks = {int(r): c["flops"] for r, c in port["ranks"].items()}
+    assert set(ranks) == {0, 15}
+    assert ranks[15] > ranks[0]
+    assert port["roofline"]["flops_per_device"] == ranks[15]
+    ratio = ranks[15] / ref["roofline"]["flops_per_device"]
+    assert ratio <= FLOPS_LIMIT, (cell, ratio)
+
+
+def _grid_table(ref_dir: Path, port_dir: Path, before=None) -> str:
+    """A markdown table, an architecture a row and a shape a column: each
+    cell's FLOPs (F), collective bytes (C, beside the reference's in GB)
+    and output bytes (O) a device, the port's over the reference's
+    (``before -> now`` with an earlier port grid); ``SKIP`` where the
+    reference skips the cell, ``n/a`` where a port grid lacks it."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCHS
+
+    def load(d, name):
+        f = Path(d) / name
+        return json.loads(f.read_text()) if f.exists() else None
+
+    rows = ["| arch | " + " | ".join(SHAPES) + " |",
+            "|---|" + "---|" * len(SHAPES)]
+    for arch in ARCHS:
+        cols = []
+        for shape in SHAPES:
+            name = f"{arch}_{shape}.json"
+            ref = load(ref_dir, name)
+            ports = [load(d, name) for d in ([before] if before else [])
+                     + [port_dir]]
+            if ref is None or ref.get("status") != "ok":
+                cols.append("SKIP")
+                continue
+            if any(p is None or p.get("status") != "ok" for p in ports):
+                cols.append("n/a")
+                continue
+            cell = []
+            for tag, key, part in (
+                    ("F", "flops_per_device", "roofline"),
+                    ("C", "collective_bytes_per_device", "roofline"),
+                    ("O", "output_bytes", "memory")):
+                want = ref[part][key]
+                got = " -> ".join(f"{p[part][key] / want:.2f}" for p in ports)
+                cell.append(f"{tag} {want / 1e9:.4g} GB {got}" if tag == "C"
+                            else f"{tag} {got}")
+            cols.append("; ".join(cell))
+        rows.append(f"| {arch} | " + " | ".join(cols) + " |")
+    return "\n".join(rows)
+
+
+def main(argv=None) -> int:
+    """Both packages' single-pod dry-run grids, and the table of the
+    port's counts over the reference's::
+
+        PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_dryrun_parity.py OUT [--before DIR]
+
+    runs the reference's grid into OUT/ref and the port's into OUT/port
+    (``--all``, each in a subprocess as the tests run them) unless a grid
+    is there already; with ``--before``, a port grid of an earlier commit
+    (its ``repro_torch.launch.dryrun --all --out DIR``) is shown beside."""
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out")
+    ap.add_argument("--before", default=None)
+    args = ap.parse_args(argv)
+    out = Path(args.out)
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCHS
+    cells = [f"{a}:{s}" for a in ARCHS for s in SHAPES]
+    for name, code in (("ref", REFERENCE), ("port", PORT)):
+        if not (out / name).exists():
+            subprocess.run([sys.executable, "-c", textwrap.dedent(code),
+                            str(out / name)] + cells, env=env, cwd=ROOT,
+                           check=True)
+    print(_grid_table(out / "ref", out / "port",
+                      Path(args.before) if args.before else None))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,9 +11,11 @@ weights (f32 parameters and compute, weights from a seed):
 * a decode step of deepseek-smoke on (2, 4): MLA's compressed cache holds
   ``model`` on its sequence, and the softmax is combined over the slices;
 * llama-vision-smoke (4 heads, 2 kv heads over 4: each rank's query head
-  shares one kv head), gemma2-smoke (post-norms, a window) and
-  zamba2-smoke (Mamba2's in_proj output cut where its shards do not
-  split it) trained on (2, 4); llama-vision's prefill logits and cache;
+  shares one kv head and projects it), gemma2-smoke (post-norms, a
+  window) and zamba2-smoke (Mamba2 by heads: in_proj's and the conv's
+  weights re-laid, cut where their shards do not split them) trained on
+  (2, 4); llama-vision's and zamba2's prefill logits and every leaf of
+  their caches;
 * whisper-smoke (4 heads over model=8: sequence slices for the encoder,
   the decoder and the cross attention) trained on (1, 8);
 * decode steps of rwkv6-smoke at batch 1 on (4, 2) (the batch whole on
@@ -31,6 +33,9 @@ WORLD = 8
 DECODE = ["olmoe_1b_7b", "deepseek_v3_671b", "rwkv6_1p6b", "zamba2_2p7b"]
 TRAIN = ["olmoe_1b_7b", "llama32_vision_90b", "gemma2_27b", "zamba2_2p7b",
          "whisper_small"]
+# trained, then prefilled: the groups layout's cache on sequence slices,
+# Mamba2's by heads
+PREFILL = ["llama32_vision_90b", "zamba2_2p7b"]
 # f32 throughout: only the order of the sums differs between the layouts
 LOGITS_REL = 1e-5
 GRAD_REL = 1e-4
@@ -122,19 +127,22 @@ def _train(arch, S, sh, mesh, res):
     for path, a, b in _leaves(g_s, g_u):
         res[f"{arch}/grad_s/{path}"] = sh.full(a).float().numpy()
         res[f"{arch}/grad_u/{path}"] = b.float().numpy()
-    if arch == "llama32_vision_90b":
+    if arch in PREFILL:
         from repro_torch.train.train_step import make_prefill_step
-        lg, cache = make_prefill_step(cfg)(
+        lg, cache_s = make_prefill_step(cfg)(
             sh.tree_distribute(mesh, params, params_logical_axes(cfg)),
-            db["tokens"], db["frontend"])
+            db["tokens"], db.get("frontend"))
         res[f"{arch}/prefill_s"] = sh.full(lg).detach().numpy()
-        res[f"{arch}/prefill_k_s"] = sh.full(
-            cache["groups"]["g0"]["p2"]["k"]).detach().numpy()
         sh.set_mesh(None)
-        lg, cache = make_prefill_step(cfg)(params, toks, batch["frontend"])
+        lg, cache_u = make_prefill_step(cfg)(params, toks,
+                                             batch.get("frontend"))
         res[f"{arch}/prefill_u"] = lg.detach().numpy()
-        res[f"{arch}/prefill_k_u"] = cache["groups"]["g0"]["p2"]["k"] \
-            .detach().numpy()
+        for path, a, b in _leaves(cache_s["groups"], cache_u["groups"]):
+            res[f"{arch}/pcache_s/{path}"] = sh.full(a).detach().numpy()
+            res[f"{arch}/pcache_u/{path}"] = b.detach().numpy()
+        if arch == "llama32_vision_90b":
+            res[f"{arch}/prefill_k_s"] = res[f"{arch}/pcache_s/g0/p2/k"]
+            res[f"{arch}/prefill_k_u"] = res[f"{arch}/pcache_u/g0/p2/k"]
     sh.set_mesh(None)
 
 
@@ -209,3 +217,17 @@ def test_groups_layout_prefill_matches_unsharded(runs):
         <= LOGITS_REL
     assert _rel(runs[f"{arch}/prefill_k_s"], runs[f"{arch}/prefill_k_u"]) \
         <= LOGITS_REL
+
+
+@pytest.mark.parametrize("arch", PREFILL)
+def test_prefill_cache_matches_unsharded(runs, arch):
+    """A sharded prefill's logits and every leaf of its cache (laid out as
+    decode reads it) against the unsharded prefill's."""
+    assert _rel(runs[f"{arch}/prefill_s"], runs[f"{arch}/prefill_u"]) \
+        <= LOGITS_REL
+    names = [k.split("/", 2)[2] for k in runs
+             if k.startswith(f"{arch}/pcache_s/")]
+    assert names
+    for n in names:
+        got, want = runs[f"{arch}/pcache_s/{n}"], runs[f"{arch}/pcache_u/{n}"]
+        assert _rel(got, want) <= LOGITS_REL, n
