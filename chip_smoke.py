@@ -17,6 +17,7 @@ paper's data-structure grid and robustness gauntlet.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
     python3 chip_smoke.py --dist   # the card, build and dist phases alone
+    python3 chip_smoke.py --runtime  # the card, build and runtime runs alone
 
 Phases (any failure raises and exits non-zero; none is caught):
 
@@ -64,11 +65,33 @@ Phases (any failure raises and exits non-zero; none is caught):
               worker, prefix cache; no use-after-free, no leaks, poisons ==
               frees, 0 host->device KV bytes per decode step, both kernels
               launched, finite logits below the poison scale.
+   runtime d -- the same model and prompts (3-10 new tokens each, no
+              prefix cache, reclaim at 4 retired pages) with decode worker
+              0 stalled 50 ms mid-step every 4th step under EpochPOP-pool,
+              HazardPtrPOP@vec and EBR@vec: no use-after-free, pings under
+              the publish-on-ping schemes; retired peak, pings and the
+              largest ping stall printed.
+   runtime -- starcoder2-7b at full width cut to 4 of 32 layers, f32
+              compute, each run against a baseline (the serve phase's
+              engine, FIFO) on the same prompts: every request's tokens
+              equal (a difference only at a near-tie of the baseline, top-2
+              gap under 1e-4 of |top-1|, in one request at most), max_new
+              tokens each, no use-after-free, no leaks, poisons == frees.
+              a: 2 prefill workers, SJF, preemption at 32-token chunk
+              boundaries, the 8 prompts and two of 2048 tokens
+              (preemptions and queue reorders > 0); b: 4 engines, static
+              placement skewed onto engine 0, migration (migrations and
+              adopts > 0); c: host storage against device storage (KV bytes
+              uploaded a step > 0 and 0); e: run a traced (the export
+              validates); f: examples/serve_paged_torch.py as a user runs
+              it, a process of its own beside a-e.  (g, after the train phase's tiny trainer: its
+              checkpoint restored by a fresh Trainer and served, the tokens
+              of the parameters in memory.)
    smr serve -- the same traffic at 4 new tokens under every safe scheme
-              of the SMR registry (SimulatedSMRPolicy, ``gen`` backend)
-              and HazardPtrPOP and EpochPOP on ``vec`` (the heavy schemes,
-              HazardEraPOP, HP, HE, HPAsym and DEBRA+, on the 4 prompts
-              sharing a prefix), each run a process of its own
+              of the SMR registry (SimulatedSMRPolicy, ``gen`` backend;
+              the heavy schemes, HazardEraPOP, HP, HE, HPAsym and DEBRA+,
+              on ``vec`` and 2 prompts sharing a prefix) and
+              HazardPtrPOP and EpochPOP on ``vec``, each run a process of its own
               (``chip_smoke.py --smr-run SCHEME BACKEND``), four
               at a time: the same checks (NR: nothing freed), one line per
               run with tok/s, inter-token p50/p99, frees, pings,
@@ -76,7 +99,7 @@ Phases (any failure raises and exits non-zero; none is caught):
               time per decode step.
    fleet replay -- a trace of fleet_load.py's tenant mix (Poisson, 0.5
               requests/s for 10 s) replayed in real time under
-              EpochPOP-pool, HazardPtrPOP, EpochPOP, HP and EBR, scored
+              EpochPOP-pool, HazardPtrPOP and EBR, scored
               against MLPerf's Llama-2-70B server limits (TTFT 2 s, 200 ms
               per token): attainment, goodput, TTFT p50/p99, the largest
               ping stall; no use-after-free.
@@ -179,7 +202,7 @@ Phases (any failure raises and exits non-zero; none is caught):
               whisper: an async checkpoint at step 2 restored by a fresh
               Trainer, its final loss within 2e-2 of an uninterrupted run.
               Then examples/train_tiny_lm_torch.py's 200 steps: the loss
-              drops.  Each train shape's plain VJP is timed beside its
+              drops; its checkpoint restored and served (runtime g).  Each train shape's plain VJP is timed beside its
               bound and, where SDPA computes the forward, SDPA's backward.
 12. dist   -- distribution: 8 ranks (processes of their own) on the one
               card over gloo, the kernels built before by this process.
@@ -190,7 +213,7 @@ Phases (any failure raises and exits non-zero; none is caught):
               f32 and bf16 against the unsharded run (rank 0), no token
               dropped and the aux losses off, the unsharded run's routing
               replayed: f32 loss and MoE outputs within 1e-4 relative,
-              every grad within 1e-3; then two bf16 train steps with the
+              every grad within 1e-3; then one bf16 train step with the
               config's own capacity and aux.  The same olmoe on the same
               mesh, one decode step at B=8 after a 64-token prefill (no
               expert parallelism: each rank its own experts, every weight
@@ -205,7 +228,11 @@ Phases (any failure raises and exits non-zero; none is caught):
               heads), each with a prefill's logits and cache;
               decode steps of starcoder2 (a cache sequence over model),
               deepseek (MLA's latent attention), rwkv6 at batch 1 on
-              (4, 2) and zamba2 (stationary products).
+              (4, 2) and zamba2 (stationary products).  A sharded
+              checkpoint: zamba2-smoke trained 2 steps on (2, 4), saved,
+              restored onto (4, 2) with restore(shardings=), the third step
+              against the uninterrupted run's (loss 1e-4, parameters 1e-4
+              relative).
               starcoder2-7b at full width
               cut to 2 layers on (data=1, model=8), context parallel (36
               heads over 8): prefill logits (f32 1e-3, bf16 as the dense
@@ -254,6 +281,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import (deepseek_v3_671b,  # noqa: E402
                                  llama32_vision_90b, olmoe_1b_7b, rwkv6_1p6b,
                                  starcoder2_7b, whisper_small, zamba2_2p7b)
+from repro_torch.configs.base import dense_stack  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core.gauntlet import (gauntlet_cell,  # noqa: E402
                                        run_gauntlet, summarize)
@@ -273,15 +301,18 @@ from repro_torch.models.model import (apply_model, init_cache,  # noqa: E402
                                       unstack)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import apply_moe, capacity  # noqa: E402
-from repro_torch.obs import SLOSpec, SLOTracker  # noqa: E402
+from repro_torch.obs import SLOSpec, SLOTracker, Tracer  # noqa: E402
+from repro_torch.obs.trace import validate_trace  # noqa: E402
 from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.parallel import sharding as sh  # noqa: E402
 from repro_torch.parallel.compression import (compress_with_feedback,  # noqa: E402
                                               compressed_psum)
 from repro_torch.parallel.pipeline import (make_mlp_stage,  # noqa: E402
                                            pipeline_forward)
+from repro_torch.runtime.block_pool import BlockPool  # noqa: E402
 from repro_torch.runtime.kv_store import PagedKVStore  # noqa: E402
-from repro_torch.runtime.reclaim import supported_schemes  # noqa: E402
+from repro_torch.runtime.reclaim import (make_policy,  # noqa: E402
+                                        supported_schemes)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.loadgen import (TenantSpec, WorkloadSpec,  # noqa: E402
                                        generate, replay)
@@ -1003,20 +1034,26 @@ def _prompts(rng, vocab):
     return prompts
 
 
-def _engine(cfg, params, smr: str = "EpochPOP-pool", backend: str = "gen"):
-    return ServeEngine(cfg, params, kv_store="paged", kv_storage="device",
-                       device=DEV, smr=smr, sim_backend=backend, n_engines=2,
-                       prefill_workers=1, prefix_cache=True, page_size=PAGE,
-                       prefill_chunk=32, num_pages=POOL_PAGES, max_batch=8)
+def _engine(cfg, params, smr: str = "EpochPOP-pool", backend: str = "gen",
+            **kw):
+    """The serve phase's engine (``kw`` overrides an option)."""
+    opts = dict(kv_store="paged", kv_storage="device", device=DEV, smr=smr,
+                sim_backend=backend, n_engines=2, prefill_workers=1,
+                prefix_cache=True, page_size=PAGE, prefill_chunk=32,
+                num_pages=POOL_PAGES, max_batch=8)
+    opts.update(kw)
+    return ServeEngine(cfg, params, **opts)
 
 
 def _serve(eng, prompts, max_new: int, label: str):
-    """Start ``eng``, submit ``prompts`` at ``max_new`` tokens each, wait
-    for every request, stop: (requests, wall seconds, kernel launches)."""
+    """Start ``eng``, submit ``prompts`` at ``max_new`` tokens each (or
+    each its own, from a list), wait for every request, stop: (requests,
+    wall seconds, kernel launches)."""
+    news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
     build.reset_launch_counts()
     t0 = time.monotonic()
     eng.start()
-    reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+    reqs = [eng.submit(p, max_new=n) for p, n in zip(prompts, news)]
     for r in reqs:
         if not r.done.wait(timeout=900):
             raise AssertionError(f"{label}: request {r.rid} did not finish")
@@ -1089,22 +1126,430 @@ def phase_serve(cfg, params, card: str, max_new: int = 16):
 
 
 # ----------------------------------------------------------------------------
+# 4a. runtime: the serving runtime's options on the card
+# ----------------------------------------------------------------------------
+
+#: the f32 runs' cut: starcoder2-7b at full width, 4 of its 32 layers
+RUNTIME_LAYERS = 4
+RUNTIME_MAX_NEW = 8
+RUNTIME_LONG = 2048              # run a's two long prompts, tokens each
+#: a differing request is accepted only where the baseline's top-2 logit
+#: gap at its first differing step is under this share of |top-1 logit|
+NEAR_TIE = 1e-4
+#: the stalled-reader runs (d): scheme, backend
+STALL_RUNS = (("EpochPOP-pool", "gen"), ("HazardPtrPOP", "vec"),
+              ("EBR", "vec"))
+POP_SCHEMES = ("EpochPOP-pool", "HazardPtrPOP", "HazardEraPOP", "EpochPOP")
+STALL_MAX_NEW = (3, 4, 5, 6, 7, 8, 9, 10)
+
+
+def _runtime_prompts(rng, vocab, long_len: int = RUNTIME_LONG):
+    """(two prompts of ``long_len`` tokens, the serve phase's 8)."""
+    short = _prompts(rng, vocab)
+    long = [rng.integers(1, vocab, long_len).tolist() for _ in range(2)]
+    return long, short
+
+
+def _run_stream(eng, long, short, max_new: int, label: str,
+                chunk: int = 32, fillers: int = 0):
+    """Start ``eng``; submit the long prompts, wait until each has a chunk
+    in its pages (so a shorter prompt can preempt it), then the short
+    ones, each after ``fillers`` empty requests (which static placement
+    puts on the other engines: every real request's rid is then a multiple
+    of ``fillers + 1``); wait for all, stop.  Returns (the real requests,
+    wall seconds, kernel launches)."""
+    build.reset_launch_counts()
+    t0 = time.monotonic()
+    eng.start()
+    reqs = [eng.submit(p, max_new=max_new) for p in long]
+    deadline = time.monotonic() + 120
+    while (any(r.prefilled < chunk and not r.done.is_set() for r in reqs)
+           and time.monotonic() < deadline):
+        time.sleep(0.001)
+    pads = []
+    for p in short:
+        pads += [eng.submit([], max_new=1) for _ in range(fillers)]
+        reqs.append(eng.submit(p, max_new=max_new))
+    for r in reqs + pads:
+        if not r.done.wait(timeout=900):
+            raise AssertionError(f"{label}: request {r.rid} did not finish")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    eng.stop()
+    return reqs, wall, dict(build.launch_counts)
+
+
+@torch.no_grad()
+def _same_tokens(cfg, params, base, got):
+    """(ok, note): ``got``'s tokens against the baseline's, request by
+    request.  A request that differs is accepted only at a near-tie of the
+    baseline (its top-2 logit gap at the first differing step, from a
+    full-sequence forward of the prompt and the baseline's tokens before
+    it, under NEAR_TIE of |top-1|), and in one request at most."""
+    diffs = []
+    for b, g in zip(base, got):
+        n = min(len(b.out), len(g.out))
+        if b.out[:n] == g.out[:n]:
+            continue
+        k = next(i for i in range(n) if b.out[i] != g.out[i])
+        toks = torch.tensor([b.prompt + b.out[:k]], device=DEV)
+        logits = apply_model(params, toks, cfg=cfg, mode="prefill")[0]
+        top = torch.topk(logits[0, -1, :cfg.vocab].float(), 2).values
+        gap = float(top[0] - top[1])
+        diffs.append((b.rid, k, gap, gap / max(abs(float(top[0])), 1e-30)))
+    ok = len(diffs) <= 1 and all(rel < NEAR_TIE for *_, rel in diffs)
+    if not diffs:
+        return ok, f"tokens equal the baseline's in {len(got)} requests"
+    return ok, "tokens differ from the baseline's in " + "; ".join(
+        f"rid {rid} at step {k} (the baseline's top-2 gap {gap:.3e}, "
+        f"{rel:.2e} of |top-1|, near-tie tol {NEAR_TIE:g})"
+        for rid, k, gap, rel in diffs)
+
+
+def _runtime_checks(eng, reqs, launches, max_new: int, host: bool = False):
+    """The serve phase's checks of a run (every request ``max_new``
+    tokens, no engine error, so no use-after-free; after eviction and a
+    flush no leaks and poisons == frees; both kernels launched).  Host
+    storage uploads KV bytes every step instead of none, and its pages,
+    in host memory, are written there: the scatter kernel, which writes
+    device pages, is not launched."""
+    checks = _serve_checks(eng, reqs, launches, [max_new] * len(reqs))
+    if host:
+        del checks["bytes_h2d_per_step == 0"]
+        checks.pop("paged_scatter launched", None)
+        checks["bytes_h2d_per_step > 0"] = \
+            eng.kv_copy_stats()["bytes_h2d_per_step"] > 0
+        checks["pages written in host memory"] = \
+            launches["paged_scatter"] == 0
+    return checks
+
+
+def _runtime_line(label: str, checks: dict, extra: str, card: str) -> None:
+    ok = all(checks.values())
+    failed = [k for k, v in checks.items() if not v]
+    log(f"runtime {label}: {extra}; checks {len(checks)} passed"
+        f"{'' if ok else f', FAILED {failed}'}; {card}: {ok}")
+    if not ok:
+        raise AssertionError(f"runtime {label}: {failed}")
+
+
+def _chunk_ms(cfg, params, tokens, chunk: int = 32) -> float:
+    """One ``chunk``-token prefill forward through the paged kernels into
+    a scratch store (after one warm-up), host clock around a sync."""
+    store = PagedKVStore(cfg, 8, PAGE, storage="device", device=DEV)
+    blocks = list(range(-(-chunk // PAGE)))
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in prefill_kv_chunked(params, cfg, store, blocks,
+                                    tokens[:chunk], chunk):
+            pass
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _runtime_runs(cfg, params, card: str, long_len: int,
+                  max_new: int) -> dict:
+    """Runs a-c and e, each against the baseline: the serve phase's engine
+    (FIFO) on the same prompts, in ``cfg``'s f32.  Returns the paged
+    kernels' launches over the runs."""
+    long, short = _runtime_prompts(np.random.default_rng(SEED + 2),
+                                   cfg.vocab, long_len)
+    seq = long_len + 64
+    total = {"paged_attention": 0, "paged_scatter": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    def lat(eng) -> str:
+        snap = eng.metrics.snapshot().get("tok_latency_s", {})
+        return (f"inter-token p50 {1e3 * snap.get('p50', float('nan')):.2f}"
+                f" ms p99 {1e3 * snap.get('p99', float('nan')):.2f} ms")
+
+    base_eng = _engine(cfg, params, max_seq=seq)
+    base, wall, launches = _run_stream(base_eng, long, short, max_new,
+                                       "baseline")
+    add(launches)
+    checks = _runtime_checks(base_eng, base, launches, max_new)
+    base_h2d = base_eng.kv_copy_stats()["bytes_h2d_per_step"]
+    _runtime_line(
+        "baseline (FIFO, 2 decode engines, 1 prefill worker)", checks,
+        f"{len(base)} requests ({len(long)} of {long_len} tokens) x "
+        f"{max_new} new in {wall:.2f} s; {lat(base_eng)}", card)
+    del base_eng
+    free_cuda()
+
+    # a. the async prefill stage, SJF, preemption at chunk boundaries
+    eng = _engine(cfg, params, max_seq=seq, prefill_workers=2,
+                  sched_policy="sjf", preempt_prefill=True)
+    reqs, wall, launches = _run_stream(eng, long, short, max_new, "a")
+    add(launches)
+    stall = eng.pool.stats.max_ping_stall_s     # before the checks' flush
+    same, note = _same_tokens(cfg, params, base, reqs)
+    checks = _runtime_checks(eng, reqs, launches, max_new)
+    sched = eng.scheduler
+    checks.update({"tokens": same, "preemptions > 0": sched.preemptions > 0,
+                   "queue_reorders > 0": sched.queue_reorders > 0})
+    _runtime_line(
+        "a prefill_workers=2 chunk=32 sjf preempt_prefill", checks,
+        f"{note}; preemptions {sched.preemptions}, queue reorders "
+        f"{sched.queue_reorders}; max ping stall {1e3 * stall:.3f} ms "
+        f"beside one 32-token chunk's "
+        f"forward {_chunk_ms(cfg, params, short[4]):.3f} ms; {wall:.2f} s",
+        card)
+    del eng
+    free_cuda()
+
+    # b. static placement skewed onto engine 0, the migration monitor
+    eng = _engine(cfg, params, max_seq=seq, n_engines=4, max_batch=2,
+                  place_policy="static", migrate=True, migrate_threshold=2)
+    reqs, wall, launches = _run_stream(eng, [], short, max_new, "b",
+                                       fillers=3)
+    add(launches)
+    same, note = _same_tokens(cfg, params, base[len(long):], reqs)
+    checks = _runtime_checks(eng, reqs, launches, max_new)
+    sched, st = eng.scheduler, eng.pool.stats
+    checks.update({"tokens": same, "migrations > 0": sched.migrations > 0,
+                   "adopts > 0": st.adopts > 0})
+    _runtime_line(
+        "b n_engines=4 place_policy=static migrate migrate_threshold=2",
+        checks, f"{note}; every request's rid a multiple of 4 (3 empty "
+        f"requests before each); migrations {sched.migrations}, adopts "
+        f"{st.adopts} ({st.adopted_blocks} blocks), stale_handoffs "
+        f"{st.stale_handoffs}; {wall:.2f} s", card)
+    del eng
+    free_cuda()
+
+    # c. host storage against device storage, the 4 prompts that share
+    # no prefix (host storage uploads every layer's whole pool a forward)
+    runs = {}
+    for storage in ("device", "host"):
+        eng = _engine(cfg, params, max_seq=seq, kv_storage=storage)
+        reqs, wall, launches = _run_stream(eng, [], short[4:], max_new,
+                                           f"c {storage}")
+        add(launches)
+        checks = _runtime_checks(eng, reqs, launches, max_new,
+                                 host=storage == "host")
+        runs[storage] = (reqs, checks, eng.kv_copy_stats(), lat(eng), wall)
+        del eng
+        free_cuda()
+    same, note = _same_tokens(cfg, params, base[len(long) + 4:],
+                              runs["host"][0])
+    same_dev, _ = _same_tokens(cfg, params, runs["device"][0],
+                               runs["host"][0])
+    checks = {f"host {k}": v for k, v in runs["host"][1].items()}
+    checks.update({f"device {k}": v for k, v in runs["device"][1].items()})
+    checks.update({"tokens": same and same_dev,
+                   "baseline bytes_h2d_per_step == 0": base_h2d == 0})
+    h, d = runs["host"][2], runs["device"][2]
+    _runtime_line(
+        "c kv_storage=host vs device", checks,
+        f"{note}; bytes_h2d per decode step host "
+        f"{h['bytes_h2d_per_step']:.0f}, device {d['bytes_h2d_per_step']:.0f}"
+        f"; host {runs['host'][3]} ({runs['host'][4]:.2f} s), device "
+        f"{runs['device'][3]} ({runs['device'][4]:.2f} s)", card)
+    del runs
+    free_cuda()
+
+    # e. run a again at 4 new tokens, traced
+    tracer = Tracer()
+    eng = _engine(cfg, params, max_seq=seq, prefill_workers=2,
+                  sched_policy="sjf", preempt_prefill=True, trace=tracer)
+    reqs, wall, launches = _run_stream(eng, long, short, 4, "e")
+    add(launches)
+    same, note = _same_tokens(cfg, params, base, reqs)
+    checks = _runtime_checks(eng, reqs, launches, 4)
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_")) / "serve.json"
+    try:
+        obj = tracer.export(str(path))
+        with open(path) as f:
+            evs = validate_trace(json.load(f))
+    finally:
+        shutil.rmtree(path.parent, ignore_errors=True)
+    names = [e["name"] for e in evs]
+    checks.update({"tokens": same,
+                   "trace validates": len(evs) == len(obj["traceEvents"]) > 0,
+                   "prefill_chunk spans": "prefill_chunk" in names})
+    _runtime_line(
+        "e run a at 4 new tokens, trace=Tracer()", checks,
+        f"{note}; {len(evs)} trace events, {names.count('pop_pass')} "
+        f"pop_pass spans, {names.count('prefill_chunk')} prefill_chunk; "
+        f"{wall:.2f} s", card)
+    del eng, tracer, obj, evs
+    free_cuda()
+    return total
+
+
+def phase_runtime(cfg, params, card: str, long_len: int = RUNTIME_LONG,
+                  max_new: int = RUNTIME_MAX_NEW) -> dict:
+    """The serving runtime's options on the card: runs a-c and e
+    (:func:`_runtime_runs`), with run f's process beside them.  Returns
+    the paged kernels' launches over the runs."""
+    t_phase = time.monotonic()
+    example = start_example()
+    try:
+        total = _runtime_runs(cfg, params, card, long_len, max_new)
+    except BaseException:
+        example[0].kill()          # stop the example's process too
+        example[0].wait()
+        raise
+    finish_example(card, example)
+    log(f"time: runtime a-c, e, f {time.monotonic() - t_phase:.1f} s")
+    return total
+
+
+def phase_stalled_reader(cfg, params, card: str,
+                         max_new: tuple = STALL_MAX_NEW) -> dict:
+    """Run d: the serve phase's model and prompts with decode worker 0
+    stalled ``stall_s`` = 50 ms mid-step (its reader session open) every
+    4th step, under EpochPOP-pool, HazardPtrPOP@vec and EBR@vec: the
+    paper's delayed reader on device pages.  The requests ask for 3-10 new
+    tokens (they finish, and retire their pages, one after another, while
+    the stalls go on), no prefix cache holds their pages, and the pool
+    reclaims at 4 retired pages (the serve phase's: 16, and
+    publish-on-ping at 32), so a stall meets garbage.
+    Returns the paged kernels' launches over the runs."""
+    prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
+    max_new = list(max_new)
+    total = {"paged_attention": 0, "paged_scatter": 0}
+    for scheme, backend in STALL_RUNS:
+        pool = BlockPool(POOL_PAGES, n_engines=4, reclaim_threshold=4,
+                         pressure_factor=1, ping_timeout_s=1.0,
+                         policy=make_policy(scheme, backend=backend))
+        eng = _engine(cfg, params, smr=None, backend="gen", pool=pool,
+                      prefix_cache=False, stall_every=4, stall_s=0.05,
+                      stall_workers=[0])
+        reqs, wall, launches = _serve(eng, prompts, max_new,
+                                      f"{scheme}@{backend}")
+        for k in total:
+            total[k] += launches.get(k, 0)
+        st = eng.pool.stats
+        # the run's own: the checks' flush after stop pings stopped threads
+        stall, pings, peak = st.max_ping_stall_s, st.pings, st.retired_peak
+        checks = _serve_checks(eng, reqs, launches, max_new)
+        checks["stalls injected"] = eng.injected_stalls > 0
+        if scheme in POP_SCHEMES:
+            checks["pings > 0"] = pings > 0
+        _runtime_line(
+            f"d stalled reader {scheme}@{backend} (worker 0, 50 ms every "
+            f"4th step)", checks,
+            f"{eng.injected_stalls} stalls; retired_peak {peak}, freed "
+            f"{st.freed}, pings {pings}, max ping stall {1e3 * stall:.3f} "
+            f"ms (the run's, before the checks' flush); {wall:.2f} s", card)
+        del eng
+        free_cuda()
+    return total
+
+
+def start_example():
+    """Run f: ``examples/serve_paged_torch.py`` as a user runs it, on the
+    card, in a process of its own, started beside runs a-e (it takes ~20
+    s, 5 of them its own shutdown flush waiting out a ping timeout, as the
+    reference script's does).  Returns what :func:`finish_example`
+    reads."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    cmd = [sys.executable, str(ROOT / "examples" / "serve_paged_torch.py"),
+           "--kv-store", "paged", "--prefix-cache", "--engines", "2",
+           "--prefill-workers", "2", "--trace", f"{tmp}/serve.json"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = open(f"{tmp}/out.txt", "w+")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, tmp, time.monotonic()
+
+
+def finish_example(card: str, started) -> None:
+    proc, out, tmp, t0 = started
+    try:
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+        out.seek(0)
+        lines = out.read().strip().splitlines()
+    finally:
+        out.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    said = [ln for ln in lines if ln.startswith(("trace:", "prefill stage:"))]
+    checks = {"exit 0": proc.returncode == 0,
+              "use-after-free: none": lines[-2:-1] == [
+                  "use-after-free: none (hard error if one had occurred)"],
+              "no leaks: True": lines[-1:] == ["no leaks: True"]}
+    if not all(checks.values()):
+        log("\n".join(lines[-40:]))
+    _runtime_line(
+        "f examples/serve_paged_torch.py --kv-store paged --prefix-cache "
+        "--engines 2 --prefill-workers 2 --trace", checks,
+        f"{' | '.join(said)}; {time.monotonic() - t0:.1f} s (process start "
+        f"included, beside runs a-e)", card)
+
+
+def _runtime_system(card: str, out: dict, ckpt_dir: str) -> dict:
+    """Run g: the tiny trainer's checkpoint restored by a fresh Trainer
+    and served by the paged engine, against the same traffic served from
+    the trainer's parameters in memory.  Returns the paged kernels'
+    launches."""
+    cfg = tiny_lm.tiny_lm_config()
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=ckpt_dir), None, device=DEV)
+    restored = tr.try_restore()
+    if restored is None:
+        raise AssertionError(f"runtime g: no checkpoint in {ckpt_dir}")
+    params, _, start = restored
+    rng = np.random.default_rng(SEED + 3)
+    shared = rng.integers(1, cfg.vocab, 32).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab, int(n)).tolist()
+               for n in (3, 7, 11)]
+    prompts += [rng.integers(1, cfg.vocab, int(n)).tolist()
+                for n in (9, 40, 77)]
+    total = {"paged_attention": 0, "paged_scatter": 0}
+    runs = []
+    for p in (out["params"], params):
+        eng = _engine(cfg, p)
+        reqs, wall, launches = _serve(eng, prompts, RUNTIME_MAX_NEW,
+                                      "g system")
+        for k in total:
+            total[k] += launches.get(k, 0)
+        runs.append((reqs, _runtime_checks(eng, reqs, launches,
+                                           RUNTIME_MAX_NEW)))
+        del eng
+    same, note = _same_tokens(cfg, out["params"], runs[0][0], runs[1][0])
+    checks = {f"restored {k}": v for k, v in runs[1][1].items()}
+    checks.update({f"in memory {k}": v for k, v in runs[0][1].items()})
+    checks.update({"restored at the last step": start == out["step"],
+                   "tokens": same})
+    _runtime_line(
+        "g system (examples/train_tiny_lm_torch.py's checkpoint -> a fresh "
+        "Trainer -> the paged engine)", checks,
+        f"restored step {start} of {out['step']}; against the same traffic "
+        f"served from the parameters in memory: {note}", card)
+    return total
+
+
+# ----------------------------------------------------------------------------
 # 4b. the paper's SMR schemes guarding the device pages
 # ----------------------------------------------------------------------------
 
-#: every safe scheme of the registry on the discrete-event backend, and the
-#: two publish-on-ping schemes again on the batch-stepped one
-SMR_RUNS = ([(s, "gen") for s in supported_schemes()]
-            + [("HazardPtrPOP", "vec"), ("EpochPOP", "vec")])
 #: the schemes whose simulated work grows with the pool (every step or
-#: every ping stores or scans max_hp = POOL_PAGES slots): their runs take
-#: minutes, the others seconds
+#: every ping stores or scans max_hp = POOL_PAGES slots): their runs took
+#: minutes on the discrete-event backend (HP and HPAsym ~105 s of the
+#: phase's 136 s), the others seconds
 SMR_HEAVY = ("HazardEraPOP", "HP", "HE", "HPAsym", "DEBRA+")
-#: the heavy schemes serve the first 4 prompts (the 4 that share a 6-page
-#: prefix) of the 8: their host time grows with the pages their readers
-#: protect and retire (HP@gen 155-333 s on the 8 prompts on the H100's
-#: host), and the script's time limit holds every phase after them
-SMR_HEAVY_PROMPTS = 4
+#: every safe scheme of the registry, on the discrete-event backend but for
+#: the heavy ones, which run on the batch-stepped one (the runtime phase's
+#: time); the two publish-on-ping schemes on the batch-stepped one too
+SMR_RUNS = ([(s, "vec" if s in SMR_HEAVY else "gen")
+             for s in supported_schemes()]
+            + [("HazardPtrPOP", "vec"), ("EpochPOP", "vec")])
+#: the heavy schemes serve the first 2 prompts (sharing a 6-page prefix)
+#: of the 8 (4 before, and 8 before that): their host time is the
+#: reclaimer's passes over max_hp = POOL_PAGES slots, every 2 ms for as
+#: long as the run lasts (HP and HPAsym 61-67 s on 4 prompts even on
+#: ``vec``, on the H100's host), and the script's time limit holds every
+#: phase after them
+SMR_HEAVY_PROMPTS = 2
 #: smr serve runs at once, one process each: four copies of the weights
 #: (14.8 GB) and the pages (2.1 GB) fit the card's 80 GB beside the
 #: script's own process, which drops its copy during the phase
@@ -1130,7 +1575,10 @@ FLEET_TENANTS = (
 #: 2 s, 200 ms per output token), the nearest public interactive budget
 FLEET_SLO = SLOSpec(ttft_s=2.0, tok_latency_s=0.2,
                     name="mlperf-llama2-70b-server")
-FLEET_SCHEMES = ("EpochPOP-pool", "HazardPtrPOP", "EpochPOP", "HP", "EBR")
+#: the native policy, a publish-on-ping scheme and the epoch baseline
+#: (EpochPOP and HP too before the runtime phase came: HP's replay took
+#: 19.5 s of the phase's ~61 s)
+FLEET_SCHEMES = ("EpochPOP-pool", "HazardPtrPOP", "EBR")
 
 
 def _policy_ms_per_step(eng) -> str:
@@ -1157,7 +1605,8 @@ SMR_MAX_NEW = 4
 def smr_serve_run(cfg, params, scheme: str, backend: str, card: str,
                   max_new: int = SMR_MAX_NEW) -> None:
     """The serve phase's traffic (8 requests, 4 sharing a 96-token prefix;
-    a heavy scheme those 4 alone) at ``max_new`` tokens each under one
+    a heavy scheme the first SMR_HEAVY_PROMPTS of those) at ``max_new``
+    tokens each under one
     scheme of the SMR registry: the
     simulator-backed policy decides when each device page is freed (and
     poisoned).  Raises on a failed check; prints one line."""
@@ -2877,7 +3326,7 @@ def _train_whisper(card: str, tmp: str) -> None:
     free_cuda()
 
 
-def _train_tiny(card: str, tmp: str) -> None:
+def _train_tiny(card: str, tmp: str) -> dict:
     """The twin of examples/train_tiny_lm.py, TINY_STEPS steps on the
     card: the mean of the last 10 losses below that of the first 10."""
     t0 = time.monotonic()
@@ -2897,6 +3346,7 @@ def _train_tiny(card: str, tmp: str) -> None:
         f"{time.monotonic() - t0:.1f} s; {card}")
     if not last < first:
         raise AssertionError("tiny-lm did not learn")
+    return out
 
 
 # the kernels' call shapes in the train runs above: (kind, shape) as in
@@ -3010,8 +3460,12 @@ def phase_train(card: str):
         done("deepseek")
         _train_whisper(card, tmp)
         done("whisper")
-        _train_tiny(card, tmp)
+        out = _train_tiny(card, tmp)
         done("tiny-lm")
+        # runtime g: the tiny trainer's checkpoint, restored and served
+        for name, n in _runtime_system(card, out, f"{tmp}/tiny").items():
+            launches[name] = launches.get(name, 0) + n
+        done("runtime g")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _vjp_times(card)
@@ -3024,6 +3478,7 @@ def phase_train(card: str):
 # ----------------------------------------------------------------------------
 
 DIST_RANKS = 8
+EP_STEPS = 1                     # olmoe EP bf16 train steps (2 before)
 DIST_TIMEOUT_S = 480.0           # the ranks' limit, spawn included
 # Gloo on CUDA tensors (an H100, torch 2.11.0+cu128; each collective tried
 # alone in 8 processes of their own): its all-gather into a tensor crashes
@@ -3267,7 +3722,7 @@ def _dist_olmoe(rank: int, failed: list) -> dict:
     """olmoe-1b-7b cut to 2 layers on (data=2, model=4): expert parallelism
     over model, FSDP over data.  Held against the unsharded step (rank 0
     runs it first, the others waiting) with no token dropped and the aux
-    losses off; then two bf16 train steps with the config's own capacity
+    losses off; then one bf16 train step with the config's own capacity
     and aux."""
     full = olmoe_1b_7b.CONFIG
     base = full.scaled(groups=(dataclasses.replace(full.groups[0],
@@ -3367,7 +3822,8 @@ def _dist_olmoe(rank: int, failed: list) -> dict:
         free_cuda()
     if rank == 0:
         del params
-    # two bf16 steps with the config's own capacity and aux
+    # bf16 steps with the config's own capacity and aux (one since the
+    # runtime phase came: 8-10 s a step, the script's time limit)
     sh.set_mesh(mesh)
     try:
         db = {k: sh.distribute(v, mesh, sh.batch_spec(mesh))
@@ -3377,7 +3833,7 @@ def _dist_olmoe(rank: int, failed: list) -> dict:
         free_cuda()
         torch.cuda.reset_peak_memory_stats()
         times, losses = [], []
-        for _ in range(2):
+        for _ in range(EP_STEPS):
             torch.cuda.synchronize()
             dist.barrier()
             t0 = time.monotonic()
@@ -3731,6 +4187,94 @@ def _dist_layouts(rank: int, failed: list) -> dict:
     return out
 
 
+#: the checkpoint case: LAYOUT_CASES' zamba2 train case, saved on (2, 4)
+#: after two steps and restored on (4, 2) for the third
+CKPT_CASE = ("zamba2_2p7b", (2, 4), (4, 2), 4)
+CKPT_PARAM_TOL = 1e-4            # relative, the worst parameter leaf
+
+
+def _dist_checkpoint(rank: int, failed: list, out_dir: str) -> dict:
+    """A sharded train run checkpointed on one mesh and resumed on
+    another: zamba2-smoke in f32, two steps on (2, 4), a save (every rank
+    gathers its DTensor leaves whole, rank 0 writes), then the third step
+    uninterrupted on (2, 4) and, after ``restore(shardings=)`` onto
+    (4, 2), again there.  The resumed step's loss within DIST_LOSS_TOL and
+    every parameter within CKPT_PARAM_TOL relative of the uninterrupted
+    one's.  Returns the resumed step's kernel launches on this rank."""
+    from repro_torch.optim.adamw import opt_state_axes
+    from repro_torch.train.checkpoint import CheckpointManager
+    arch, shape_a, shape_b, B = CKPT_CASE
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    params = _f32(init_params(cfg, torch.Generator(device=DEV).manual_seed(
+        SEED), device=DEV))
+    axes = params_logical_axes(cfg)
+    step = make_train_step(cfg, lr=cosine_schedule(1e-2, warmup=1,
+                                                   total=10))
+    rng = np.random.default_rng(SEED + 32)
+    batches = [_layout_batch(cfg, B, rng) for _ in range(3)]
+    t0 = time.monotonic()
+
+    def run(mesh, p, o, b):
+        db = {k: sh.distribute(v, mesh, sh.spec_for(
+            mesh, ("batch",) + (None,) * (v.dim() - 1), tuple(v.shape)))
+            for k, v in b.items()}
+        return step(p, o, db)
+
+    mesh_a = make_host_mesh(shape_a, ("data", "model"))
+    sh.set_mesh(mesh_a)
+    try:
+        dp = sh.tree_distribute(mesh_a, params, axes)
+        do = adamw_init(dp)
+        for b in batches[:2]:
+            dp, do, _ = run(mesh_a, dp, do, b)
+        mgr = CheckpointManager(os.path.join(out_dir, "ckpt"))
+        mgr.save(2, {"params": dp, "opt": do}, extra={"data_step": 2},
+                 async_=True)
+        dp, do, m = run(mesh_a, dp, do, batches[2])    # uninterrupted
+        mgr.wait()
+        loss_a = float(sh.full(m["loss"]))
+        whole_a = {k: sh.full(v) for k, v in flatten_with_paths(dp)}
+        seen = mgr.latest_step()
+    finally:
+        sh.set_mesh(None)
+    del dp, do
+    mesh_b = make_host_mesh(shape_b, ("data", "model"))
+    sh.set_mesh(mesh_b)
+    try:
+        tmpl = {"params": params, "opt": adamw_init(params)}
+        shardings = sh.tree_shardings(
+            mesh_b, {"params": axes, "opt": opt_state_axes(axes)}, tmpl)
+        state, meta = mgr.restore(tmpl, shardings=shardings, mesh=mesh_b)
+        placed = all(tuple(v.placements) == tuple(want) for (_, v), (_, want)
+                     in zip(flatten_with_paths(state),
+                            flatten_with_paths(shardings)))
+        build.reset_launch_counts()
+        dp, _, m = run(mesh_b, state["params"], state["opt"], batches[2])
+        launches = {k: build.launch_counts[k]
+                    for k in ("flash_attention", "linear_scan")}
+        loss_b = float(sh.full(m["loss"]))
+        worst, at = max((_rel(sh.full(v).float(), whole_a[k].float()), k)
+                        for k, v in flatten_with_paths(dp))
+    finally:
+        sh.set_mesh(None)
+    if rank == 0:
+        lrel = abs(loss_b - loss_a) / abs(loss_a)
+        ok = (seen == 2 and meta["extra"]["data_step"] == 2 and placed
+              and lrel <= DIST_LOSS_TOL and worst <= CKPT_PARAM_TOL)
+        log(f"dist checkpoint {cfg.name} train float32: saved on {shape_a} "
+            f"after 2 steps, restored on {shape_b} (restore(shardings=), "
+            f"every leaf on its placements: {placed}), step 3 loss "
+            f"{loss_b:.6f} vs uninterrupted {loss_a:.6f} (rel {lrel:.2e}, "
+            f"tol {DIST_LOSS_TOL:g}); parameters worst {at} rel {worst:.3e} "
+            f"(tol {CKPT_PARAM_TOL:g}); launches on rank 0 {launches}; "
+            f"{1e3 * (time.monotonic() - t0):.0f} ms (host clock): {ok}")
+        if not ok:
+            failed.append("dist checkpoint")
+    del params, state, dp
+    free_cuda()
+    return launches
+
+
 def _dist_compression(rank: int, failed: list) -> dict:
     """compressed_psum over the 8 ranks: the reference test's input and
     bounds, and one olmoe layer's gradient size, timed."""
@@ -3833,6 +4377,7 @@ def _dist_rank(rank: int, world: int, init: str, out_dir: str) -> None:
         res["olmoe"] = _dist_olmoe(rank, failed)
         res["olmoe_decode"] = _dist_olmoe_decode(rank, failed)
         res["layouts"] = _dist_layouts(rank, failed)
+        res["checkpoint"] = _dist_checkpoint(rank, failed, out_dir)
         res["cp"] = _dist_cp(rank, failed)
         res["compression"] = _dist_compression(rank, failed)
         res["pipeline"] = _dist_pipeline(rank, failed)
@@ -3962,6 +4507,7 @@ def phase_dist(card: str, dry=None) -> int:
                                    if any(v))
             for name, got in layouts.items()))
         launched = {k: sum(sum(got[k]) for got in layouts.values())
+                    + sum(r["checkpoint"][k] for r in ranks)
                     for k in ("flash_attention", "linear_scan")}
         for name, want in (("llama-vision-smoke train (2, 4)",
                             "flash_attention"),
@@ -4011,6 +4557,31 @@ def main() -> int:
         launches = phase_dist(card)
         log(f"dist alone: launches {launches}; {card}")
         return 0
+    if sys.argv[1:2] == ["--runtime"]:
+        # the runtime runs alone (d, a-c, e, f, and g after a short tiny
+        # trainer), for iterating on them (prints no result)
+        card = phase_card()
+        phase_build()
+        cfg = starcoder2_7b.CONFIG
+        params = _model(cfg, "no depth cut")
+        launches = phase_stalled_reader(cfg, params, card)
+        del params
+        free_cuda()
+        cut = cfg.scaled(groups=dense_stack(RUNTIME_LAYERS), dtype="float32")
+        params = _model(cut, f"cut: {RUNTIME_LAYERS} of 32 layers")
+        for name, n in phase_runtime(cut, params, card).items():
+            launches[name] += n
+        del params
+        free_cuda()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+        try:
+            out = _train_tiny(card, tmp)
+            for name, n in _runtime_system(card, out, f"{tmp}/tiny").items():
+                launches[name] += n
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"runtime alone: launches {launches}; {card}")
+        return 0
     t0 = time.monotonic()
 
     def done(phases: str) -> None:
@@ -4031,9 +4602,19 @@ def main() -> int:
     cfg = starcoder2_7b.CONFIG
     params = _model(cfg, "no depth cut")
     launches = phase_serve(cfg, params, card)
+    for name, n in phase_stalled_reader(cfg, params, card).items():
+        launches[name] += n
     del params                 # the smr serve processes make their own
     free_cuda()
-    done("serve")
+    done("serve, runtime d")
+    cut = cfg.scaled(groups=dense_stack(RUNTIME_LAYERS), dtype="float32")
+    params = _model(cut, f"cut: {RUNTIME_LAYERS} of 32 layers, full width; "
+                    f"float32 compute: the runtime runs' token comparisons")
+    for name, n in phase_runtime(cut, params, card).items():
+        launches[name] += n
+    del params
+    free_cuda()
+    done("runtime")
     phase_smr_serve()
     done("smr serve")
     params = _model(cfg, "no depth cut, the same seed")

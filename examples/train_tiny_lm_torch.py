@@ -14,6 +14,14 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
+def tiny_lm_config(d_model: int = 128, layers: int = 4) -> ArchConfig:
+    """The tiny f32 LM (``train_tiny_lm.py``'s)."""
+    return ArchConfig(
+        name="tiny-lm", d_model=d_model, n_heads=8, n_kv_heads=4,
+        d_ff=d_model * 4, vocab=512, groups=dense_stack(layers),
+        remat="none", dtype="float32")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=200)
@@ -24,10 +32,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = ArchConfig(
-        name="tiny-lm", d_model=args.d_model, n_heads=8, n_kv_heads=4,
-        d_ff=args.d_model * 4, vocab=512, groups=dense_stack(args.layers),
-        remat="none", dtype="float32")
+    cfg = tiny_lm_config(args.d_model, args.layers)
     tcfg = TrainerConfig(steps=args.steps, ckpt_every=50, log_every=10,
                          ckpt_dir=args.ckpt_dir, lr_peak=1e-3)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0)

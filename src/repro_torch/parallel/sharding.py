@@ -299,8 +299,19 @@ def _is_axes_leaf(x) -> bool:
                                         for e in x)
 
 
+def _is_record(x) -> bool:
+    """A NamedTuple node (the optimizer state) of an axes or spec tree."""
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def tree_specs(mesh, axes_tree, shapes_tree=None):
-    """axes tree (+ a matching tree of tensors or shapes) -> spec tree."""
+    """axes tree (+ a matching tree of tensors or shapes) -> spec tree;
+    nested dicts and NamedTuples (``opt_state_axes``)."""
+    if _is_record(axes_tree):
+        return type(axes_tree)(*(
+            tree_specs(mesh, getattr(axes_tree, f), None if shapes_tree is None
+                       else getattr(shapes_tree, f))
+            for f in axes_tree._fields))
     if _is_axes_leaf(axes_tree):
         shape = None if shapes_tree is None else tuple(
             getattr(shapes_tree, "shape", shapes_tree))
@@ -317,6 +328,8 @@ def tree_shardings(mesh, axes_tree, shapes_tree=None):
     def walk(s):
         if isinstance(s, dict):
             return {k: walk(v) for k, v in s.items()}
+        if _is_record(s):
+            return type(s)(*(walk(getattr(s, f)) for f in s._fields))
         return placements(mesh, s)
     return walk(specs)
 

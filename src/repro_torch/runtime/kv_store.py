@@ -312,7 +312,11 @@ class PagedKVStore:
         (zero bytes moved), an upload of the layer on host storage."""
         k, v = self._k[layer], self._v[layer]
         if self.storage == "host":
-            # the host storage's read tax: one full-layer upload per call
+            # the host storage's read tax: one full-layer upload per call.
+            # A synchronous copy from pageable memory on purpose: it has
+            # landed before this returns, so a poison fill of a page freed
+            # later cannot race it (a non_blocking copy from pinned memory
+            # could, and no tripwire would see it)
             self._bytes_h2d += 2 * int(k.numel()) * k.element_size()
             k, v = k.to(self.device), v.to(self.device)
         return k, v

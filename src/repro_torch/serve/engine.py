@@ -56,8 +56,10 @@ class ServeEngine:
     ``device`` is where the model and kernels run: ``cuda`` unless given.
     ``kernel_impl`` ("torch" | "cuda" | None) overrides the kernels' choice
     (None: the CUDA kernels on a CUDA device, plain PyTorch on the CPU).
-    ``sim_backend``/``sim_costs`` configure simulator-backed SMR schemes,
-    which are ported in a later slice.
+    ``sim_backend``/``sim_costs`` configure the simulator-backed SMR
+    schemes (``smr`` naming any scheme of ``runtime.reclaim.
+    supported_schemes()``): the backend (``"gen"`` or ``"vec"``) and the
+    cost model.
 
     ``prefill_workers``/``prefill_chunk`` configure the async prefill
     pipeline: N dedicated prefill threads (each its own SMR reader slot in

@@ -24,6 +24,19 @@ Restore rounds each leaf to its template's dtype (f32 -> bf16 round to
 nearest even, as numpy's ml_dtypes cast in the reference) and places it on
 the template's device; the stored leaves are whole, so a restore does not
 depend on where the saving run ran.
+
+A sharded state (DTensor leaves on a ``DeviceMesh``) is saved whole, as
+the reference's ``np.asarray`` gathers a sharded ``jax.Array``: each
+DTensor leaf's ``full_tensor()`` -- a collective, so every rank of the
+mesh enters :meth:`CheckpointManager.save` at the same step -- is taken
+in the synchronous snapshot, never on the writer thread.  Rank 0 alone
+writes the directory; every rank waits at a barrier (at the end of a
+synchronous save, in :meth:`CheckpointManager.wait` after an async one)
+before :meth:`CheckpointManager.latest_step` may look for it.  Restore is
+elastic, as the reference's: ``shardings`` (placements per leaf, e.g.
+``parallel.sharding.tree_shardings``) lays each whole leaf out on
+``mesh``, whatever mesh saved it; without them a leaf lands as its
+template leaf, a DTensor template leaf on its own mesh and placements.
 """
 
 from __future__ import annotations
@@ -38,13 +51,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.adamw import AdamWState, tree_unflatten
+from repro_torch.parallel.sharding import full, is_dtensor
 
 
 def _to_numpy(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
-        v = v.detach()
+        v = full(v.detach())            # a DTensor gathered whole
         if v.dtype == torch.bfloat16:   # npz has no bf16: widen to f32
             v = v.float()
         return v.cpu().numpy()
@@ -68,12 +83,20 @@ def flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
     return [("/".join(prefix), tree)]
 
 
-def _like(arr: np.ndarray, tmpl):
-    """``arr`` as the template leaf: its dtype (and device, for a
-    tensor)."""
+def _like(arr: np.ndarray, tmpl, mesh=None, placements=None):
+    """``arr`` as the template leaf: its dtype and device, and for a
+    DTensor template its mesh and placements -- or ``placements`` on
+    ``mesh`` where given."""
     if isinstance(tmpl, torch.Tensor):
         t = torch.from_numpy(np.array(arr, order="C"))    # keeps 0-d
-        return t.to(device=tmpl.device, dtype=tmpl.dtype)
+        t = t.to(device=tmpl.device, dtype=tmpl.dtype)
+        if placements is None and is_dtensor(tmpl):
+            mesh, placements = tmpl.device_mesh, tmpl.placements
+        if placements is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, mesh, tuple(placements),
+                                 src_data_rank=None)
     if hasattr(tmpl, "dtype"):
         return arr.astype(tmpl.dtype)
     return arr
@@ -87,42 +110,65 @@ class CheckpointManager:
         self._writer: Optional[threading.Thread] = None
         self._reserved = threading.Event()   # writer holds the snapshot
         self._reserved.set()                 # vacuous: nothing reserved
+        self._barrier = False                # a sharded save not yet seen
         self.async_waits = 0
 
     # ------------------------------------------------------------------
 
     def save(self, step: int, state: Dict[str, Any], *,
              extra: Optional[Dict] = None, async_: bool = False) -> None:
-        """Snapshot (device -> host copy) happens synchronously;
-        serialisation happens on the writer thread when ``async_``."""
-        snapshot = {k: _to_numpy(v) for k, v in flatten_with_paths(state)}
+        """Snapshot (device -> host copy, DTensor leaves gathered whole)
+        happens synchronously; serialisation happens on the writer thread
+        when ``async_``.  With DTensor leaves every rank of the mesh must
+        call this at the same step, and only rank 0 writes."""
+        leaves = flatten_with_paths(state)
+        sharded = any(is_dtensor(v) for _, v in leaves)
+        snapshot = {k: _to_numpy(v) for k, v in leaves}
         meta = {"step": step, "keys": sorted(snapshot), "extra": extra or {},
                 "time": time.time()}
+        writes = not sharded or dist.get_rank() == 0
 
         if async_:
             self.wait()                       # one in-flight write at a time
-            self._reserved.clear()            # writer reserves the snapshot
+            self._barrier = sharded
+            if writes:
+                self._reserved.clear()        # writer reserves the snapshot
 
-            def _write():
-                try:
-                    self._write_dir(step, snapshot, meta)
-                finally:
-                    self._reserved.set()      # publish: buffers reusable
+                def _write():
+                    try:
+                        self._write_dir(step, snapshot, meta)
+                    finally:
+                        self._reserved.set()  # publish: buffers reusable
 
-            self._writer = threading.Thread(target=_write, daemon=True)
-            self._writer.start()
+                self._writer = threading.Thread(target=_write, daemon=True)
+                self._writer.start()
         else:
-            self._write_dir(step, snapshot, meta)
+            if writes:
+                self._write_dir(step, snapshot, meta)
+            self._barrier = self._barrier or sharded
+            self._sync_ranks()
 
     def wait(self) -> None:
         """Trainer-side 'ping': block until the writer releases its
-        reservation (only called when the trainer needs the buffers)."""
+        reservation (only called when the trainer needs the buffers).
+        After a sharded save every rank waits here for rank 0's write."""
+        self._join()
+        self._sync_ranks()
+
+    def _join(self) -> None:
         if not self._reserved.is_set():
             self.async_waits += 1
         self._reserved.wait()
         if self._writer:
             self._writer.join()
             self._writer = None
+
+    def _sync_ranks(self) -> None:
+        """The barrier after a sharded save, on the caller's thread (the
+        writer thread runs no collective)."""
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _write_dir(self, step: int, snapshot: Dict[str, np.ndarray],
                    meta: Dict) -> None:
@@ -151,21 +197,31 @@ class CheckpointManager:
             return None
         return int(ckpts[-1].name.split("_")[1])
 
-    def restore(self, template: Dict[str, Any], step: Optional[int] = None):
+    def restore(self, template: Dict[str, Any], step: Optional[int] = None,
+                shardings=None, mesh=None):
         """``(state, manifest)``: the checkpoint in ``template``'s tree,
-        each leaf in its template's dtype and on its device."""
+        each leaf in its template's dtype and on its device.  With
+        ``shardings`` (a tree like ``template``'s of placements, e.g.
+        ``parallel.sharding.tree_shardings``) each whole leaf is laid out
+        on ``mesh`` -- elastic by construction."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        place: Dict[str, Any] = {}
+        if shardings is not None:
+            if mesh is None:
+                raise ValueError("restore(shardings=) needs a mesh")
+            place = dict(flatten_with_paths(shardings))
         d = self.dir / f"step_{step:08d}"
         meta = json.loads((d / "manifest.json").read_text())
         with np.load(d / "leaves.npz") as data:
-            leaves = [_like(data[key], tmpl)
+            leaves = [_like(data[key], tmpl, mesh,
+                            place[key] if place else None)
                       for key, tmpl in flatten_with_paths(template)]
         return tree_unflatten(template, iter(leaves)), meta
 
     def __del__(self):
         try:
-            self.wait()
+            self._join()        # no barrier: the other ranks are not here
         except Exception:
             pass

@@ -1,6 +1,7 @@
 """Fault-tolerant training loop, the reference's ``train/trainer.py``:
 checkpoint/restart with async writes, straggler detection (per-step wall
-time against an EMA), elastic restore (checkpoints hold whole leaves),
+time against an EMA), elastic restore (checkpoints hold whole leaves;
+``shardings`` lays them out on ``mesh``, whatever mesh saved them),
 SIGTERM preemption, and the data pipeline's step carried in the
 checkpoint so a restart replays the exact stream.
 
@@ -82,10 +83,13 @@ def stub_frontend(cfg: ArchConfig, batch: int, seed: int, step: int,
 
 class Trainer:
     def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig,
-                 data_cfg: Optional[DataConfig] = None, device=None,
+                 data_cfg: Optional[DataConfig] = None, mesh=None,
+                 shardings=None, device=None,
                  generator: Optional[torch.Generator] = None):
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mesh = mesh
+        self.shardings = shardings
         self.device = torch.device(device if device is not None else "cuda")
         self.generator = generator
         self.data = TokenPipeline(data_cfg or DataConfig(
@@ -120,7 +124,9 @@ class Trainer:
         if self.ckpt.latest_step() is None:
             return None
         params, opt = self.init_state()
-        state, meta = self.ckpt.restore({"params": params, "opt": opt})
+        state, meta = self.ckpt.restore({"params": params, "opt": opt},
+                                        shardings=self.shardings,
+                                        mesh=self.mesh)
         start = int(meta["extra"]["data_step"])
         return state["params"], state["opt"], start
 
