@@ -12,11 +12,13 @@ versions; train zamba2-2.7b, rwkv6-1.6b, deepseek-v3 (cut in depth) and
 whisper-small through the kernels' gradients; run the sharded train step
 (expert-parallel olmoe, context-parallel starcoder2 through the flash
 kernel with its query offset), a sharded olmoe decode step, the int8 ring
-all-reduce, the pipeline and the dry-run on 8 ranks sharing the card; beside them, on the host, the
-paper's data-structure grid and robustness gauntlet.
+all-reduce, the pipeline, the sharded loss and the dry-run on 8 ranks
+sharing the card, and hold the dry-run's memory count to the card's
+allocator; beside them, on the host, the paper's data-structure grid and
+robustness gauntlet.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
-    python3 chip_smoke.py --dist   # the card, build and dist phases alone
+    python3 chip_smoke.py --dist   # the card, build, dist and dryrun memory alone
     python3 chip_smoke.py --runtime  # the card, build and runtime runs alone
 
 Phases (any failure raises and exits non-zero; none is caught):
@@ -90,7 +92,8 @@ Phases (any failure raises and exits non-zero; none is caught):
    smr serve -- the same traffic at 4 new tokens under every safe scheme
               of the SMR registry (SimulatedSMRPolicy, ``gen`` backend;
               the heavy schemes, HazardEraPOP, HP, HE, HPAsym and DEBRA+,
-              on ``vec`` and 2 prompts sharing a prefix) and
+              on ``vec`` and 2 prompts sharing a prefix, HP and HPAsym
+              on the first of them) and
               HazardPtrPOP and EpochPOP on ``vec``, each run a process of its own
               (``chip_smoke.py --smr-run SCHEME BACKEND``), four
               at a time: the same checks (NR: nothing freed), one line per
@@ -194,7 +197,7 @@ Phases (any failure raises and exits non-zero; none is caught):
               Trainer steps with loss, step time, tokens/s, model TFLOP/s,
               launches a step and peak memory.  zamba2 also: launches a
               step exactly 2 x 9 flash and 2 x 54 scan calls (forward and
-              remat recompute), one step of its first 3 pattern repeats
+              remat recompute), one step of its first pattern repeat
               under torch.profiler (forward, backward, the plain VJPs'
               device time, AdamW), and one
               step's parameter delta kernels vs plain.  deepseek: a
@@ -245,7 +248,23 @@ Phases (any failure raises and exits non-zero; none is caught):
               multi-pod, gemma2 long_500k: SKIP), each cell's FLOPs a
               device (the busiest of rank 0 and the last model position)
               and collective bytes beside the reference's dry-run of it
-              (CPU counts).
+              (CPU counts).  The sharded loss: cross_entropy on f32
+              logits (4, 128, 256000) laid out over (data=2, model=4)
+              against the unsharded loss (value and gradient within
+              1e-5 relative), its collectives as OpStats counts them
+              (rows, never the logits).  The sharded step's memory
+              count (``dist memory``): each rank's allocator peak over a
+              bf16 value_and_grad of starcoder2-7b cut to 2 layers on
+              (2, 4) within 15% of ``roofline/op_stats.py``'s live-bytes
+              peak for the same call, the outputs of collectives among
+              them.  Then, in this process, the dry-run's memory count
+              held to the card (``dryrun memory``): gemma2-27b at full
+              width and vocab cut to a local and a global layer,
+              unsharded bf16 at B=1, S=4096, value_and_grad alone and
+              one train step; the card allocator's peak over each call
+              (``max_memory_allocated`` less what was allocated before
+              it) within 15% of the live-bytes peak for the same call on
+              the meta device.
 
 After each group of phases a ``time: ... done at N s`` line gives the
 time since the card phase began.  The last two lines of standard output
@@ -1533,9 +1552,8 @@ def _runtime_system(card: str, out: dict, ckpt_dir: str) -> dict:
 # ----------------------------------------------------------------------------
 
 #: the schemes whose simulated work grows with the pool (every step or
-#: every ping stores or scans max_hp = POOL_PAGES slots): their runs took
-#: minutes on the discrete-event backend (HP and HPAsym ~105 s of the
-#: phase's 136 s), the others seconds
+#: every ping stores or scans max_hp = POOL_PAGES slots): their runs take
+#: minutes on the discrete-event backend, the others seconds
 SMR_HEAVY = ("HazardEraPOP", "HP", "HE", "HPAsym", "DEBRA+")
 #: every safe scheme of the registry, on the discrete-event backend but for
 #: the heavy ones, which run on the batch-stepped one (the runtime phase's
@@ -1546,10 +1564,13 @@ SMR_RUNS = ([(s, "vec" if s in SMR_HEAVY else "gen")
 #: the heavy schemes serve the first 2 prompts (sharing a 6-page prefix)
 #: of the 8 (4 before, and 8 before that): their host time is the
 #: reclaimer's passes over max_hp = POOL_PAGES slots, every 2 ms for as
-#: long as the run lasts (HP and HPAsym 61-67 s on 4 prompts even on
-#: ``vec``, on the H100's host), and the script's time limit holds every
-#: phase after them
+#: long as the run lasts, and the script's time limit holds every phase
+#: after them
 SMR_HEAVY_PROMPTS = 2
+#: the slowest of them serve the first prompt alone: HP and HPAsym took
+#: 57-66 s each on 2 prompts (the phase's longest runs, on the H100's host)
+SMR_SLOWEST = ("HP", "HPAsym")
+SMR_SLOWEST_PROMPTS = 1
 #: smr serve runs at once, one process each: four copies of the weights
 #: (14.8 GB) and the pages (2.1 GB) fit the card's 80 GB beside the
 #: script's own process, which drops its copy during the phase
@@ -1605,14 +1626,15 @@ SMR_MAX_NEW = 4
 def smr_serve_run(cfg, params, scheme: str, backend: str, card: str,
                   max_new: int = SMR_MAX_NEW) -> None:
     """The serve phase's traffic (8 requests, 4 sharing a 96-token prefix;
-    a heavy scheme the first SMR_HEAVY_PROMPTS of those) at ``max_new``
-    tokens each under one
+    a heavy scheme the first SMR_HEAVY_PROMPTS of those, the slowest the
+    first SMR_SLOWEST_PROMPTS) at ``max_new`` tokens each under one
     scheme of the SMR registry: the
     simulator-backed policy decides when each device page is freed (and
     poisoned).  Raises on a failed check; prints one line."""
     prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
     if scheme in SMR_HEAVY:
-        prompts = prompts[:SMR_HEAVY_PROMPTS]
+        prompts = prompts[:SMR_SLOWEST_PROMPTS if scheme in SMR_SLOWEST
+                          else SMR_HEAVY_PROMPTS]
     eng = _engine(cfg, params, smr=scheme, backend=backend)
     reqs, wall, launches = _serve(eng, prompts, max_new, f"{scheme}@{backend}")
     checks = _serve_checks(eng, reqs, launches, [max_new] * len(reqs),
@@ -1654,7 +1676,9 @@ def phase_smr_serve() -> None:
     a serve step), so the runs share only the host's cores and the card.
     The longest runs start first.  The first failure stops the other
     processes and raises."""
-    order = ([r for h in SMR_HEAVY for r in SMR_RUNS if r[0] == h]
+    heavy = SMR_SLOWEST + tuple(h for h in SMR_HEAVY
+                                if h not in SMR_SLOWEST)
+    order = ([r for h in heavy for r in SMR_RUNS if r[0] == h]
              + [r for r in SMR_RUNS if r[0] not in SMR_HEAVY])
     running = []               # (scheme, backend, process, output, t0)
     t_all = time.monotonic()
@@ -1912,7 +1936,7 @@ def phase_prefill_kv(cfg, params, n_prompt: int = 512, chunk: int = 32):
         build.reset_launch_counts()
         k, v = prefill_kv(params, c, prompt)
         full.write_prefill(blocks, k, v)
-        flash = build.launch_counts["flash_attention"]
+        flash = build.launch_counts.get("flash_attention", 0)
         chunked = PagedKVStore(c, len(blocks) + 1, PAGE, storage="device",
                                device=DEV)
         for _ in prefill_kv_chunked(params, c, chunked, blocks, prompt,
@@ -2863,11 +2887,12 @@ FWD_ERR_RATIO = 1.1
 # (batch, sequence) of each model's train runs
 TRAIN_SHAPES = {"zamba2": (4, 2048), "rwkv6": (4, 2048),
                 "deepseek": (2, 1024), "whisper": (4, 448)}
-# zamba2's profiled step runs on the first 3 of its 9 pattern repeats: the
-# profiler's host work grows with the ops a step runs (the plain VJPs'
-# small ops: 142 s of host time whole on the H100's host), and the
-# script's time limit holds every phase after it
-PROFILE_REPEATS = 3
+# zamba2's profiled step runs on the first of its 9 pattern repeats (3
+# before the dry-run's memory checks came): the profiler's host work grows
+# with the ops a step runs (the plain VJPs' small ops: 142 s of host time
+# whole, 48.6 s on 3 repeats, on the H100's host), and the script's time
+# limit holds every phase after it
+PROFILE_REPEATS = 1
 TINY_STEPS = 200
 
 
@@ -4358,6 +4383,148 @@ def _dist_pipeline(rank: int, failed: list) -> dict:
     return {"pipeline_ms": ms}
 
 
+#: the sharded loss's check: f32 logits (B, S) rows over gemma2's vocab,
+#: on LOSS_MESH; value and gradient against the unsharded loss, relative
+LOSS_SHAPE = (4, 128, 256000)
+LOSS_MESH = (2, 4)
+LOSS_TOL = 1e-5
+
+
+def _dist_loss(rank: int, failed: list) -> dict:
+    """``cross_entropy`` on logits laid out as the train step's (the batch
+    over ``data``, the vocab over ``model``) against the unsharded loss on
+    the same f32 logits (rank 0), value and gradient within LOSS_TOL, and
+    the sharded call's collectives as ``roofline/op_stats.py`` counts
+    them: rows of (B_local, S) f32, never the vocab-wide logits."""
+    from repro_torch.roofline.op_stats import OpStats
+    from repro_torch.train.train_step import cross_entropy
+    B, S, V = LOSS_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    logits = 4.0 * torch.randn(B, S, V, generator=g, device=DEV)
+    targets = torch.randint(0, V, (B, S), generator=g, device=DEV)
+    mesh = make_host_mesh(LOSS_MESH, ("data", "model"))
+    sh.set_mesh(mesh)
+    try:
+        dl = sh.distribute(logits, mesh, sh.spec_for(
+            mesh, ("batch", None, "vocab"), tuple(logits.shape)))
+        dl = dl.detach().requires_grad_(True)
+        dt = sh.distribute(targets, mesh, sh.batch_spec(mesh))
+        t0 = time.monotonic()
+        with OpStats() as st:
+            loss = cross_entropy(dl, dt)
+            loss.backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.monotonic() - t0)
+        got, grad = float(sh.full(loss.detach())), sh.full(dl.grad)
+        placements = str(dl.grad.placements)
+    finally:
+        sh.set_mesh(None)
+    out = {"collective_bytes": st.coll.wire_bytes,
+           "payloads": sorted({str(t["shape"]) for t in
+                               st.top_collectives()})}
+    if rank == 0:
+        lu = logits.clone().requires_grad_(True)
+        want = cross_entropy(lu, targets)
+        want.backward()
+        e_loss = abs(got - float(want)) / abs(float(want))
+        e_grad = _rel(grad, lu.grad)
+        most = max(math.prod(t["shape"]) * 4 for t in st.top_collectives())
+        ok = (e_loss <= LOSS_TOL and e_grad <= LOSS_TOL
+              and most < B * S * 4 and math.isfinite(got))
+        log(f"dist loss float32 {LOSS_MESH} logits {LOSS_SHAPE}: sharded "
+            f"{got:.6f} vs unsharded {float(want):.6f} (rel {e_loss:.2e}), "
+            f"gradient rel {e_grad:.2e} (tol {LOSS_TOL:g}), laid out "
+            f"{placements}; collectives on rank 0 (OpStats) "
+            f"{st.coll.wire_bytes:.0f} wire bytes, payloads {out['payloads']}"
+            f" (the largest {most} bytes; the logits {B * S * V * 4}); "
+            f"{ms:.0f} ms (host clock): {ok}")
+        if not ok:
+            failed.append("dist loss")
+    del logits, dl, grad
+    free_cuda()
+    return out
+
+
+#: the sharded step's memory count held to the card: starcoder2-7b cut
+#: to 2 layers at full width, value_and_grad on LOSS_MESH, one sequence of
+#: DIST_MEM_SEQ tokens a data rank
+DIST_MEM_LAYERS, DIST_MEM_SEQ = 2, 1024
+MEM_TOL = 0.15                   # relative, the allocator's peak vs the count
+
+
+def _dist_memory(rank: int, failed: list) -> dict:
+    """One rank of a sharded bf16 ``value_and_grad`` of starcoder2-7b cut
+    to DIST_MEM_LAYERS layers (full width and vocab) on LOSS_MESH: the card
+    allocator's peak over the call (``max_memory_allocated`` less what was
+    allocated before it) against ``roofline/op_stats.py``'s live-bytes
+    peak for the same call, within MEM_TOL.  FSDP gathers each weight over
+    ``data`` and the embedding's gradient is reduce-scattered, so the
+    outputs of collectives are part of what a rank holds at its peak.
+    The reduce-scatters are staged through host memory here: run by gloo
+    on the card's tensors, a call of gemma2-27b's cut read 2359298032
+    bytes over the count, one reduce-scatter input's bytes (the
+    2359296000-byte embedding gradient), a buffer of gloo's that NCCL's
+    reduce-scatter does not allocate and the counter cannot see.  The
+    last dist check: the staging stays for the rest of the rank."""
+    from repro_torch.roofline.op_stats import OpStats
+    collectives.stage_through_host(("reduce_scatter_tensor",))
+    full = starcoder2_7b.CONFIG
+    cfg = full.scaled(groups=(dataclasses.replace(
+        full.groups[0], repeats=DIST_MEM_LAYERS),))
+    mesh = make_host_mesh(LOSS_MESH, ("data", "model"))
+    for r in range(DIST_RANKS):     # one rank's whole weights at a time
+        if r == rank:
+            params = init_params(cfg, torch.Generator(
+                device=DEV).manual_seed(SEED), device=DEV)
+            dp = sh.tree_distribute(mesh, params, params_logical_axes(cfg))
+            del params
+            free_cuda()
+        dist.barrier()
+    toks = torch.randint(0, cfg.vocab, (LOSS_MESH[0], DIST_MEM_SEQ),
+                         generator=torch.Generator().manual_seed(SEED))
+    sh.set_mesh(mesh)
+    try:
+        db = {k: sh.distribute(v.to(DEV), mesh, sh.batch_spec(mesh))
+              for k, v in (("tokens", toks),
+                           ("targets", torch.roll(toks, -1, 1)))}
+        free_cuda()
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        with OpStats() as st:
+            (loss, _), grads = value_and_grad(dp, db, cfg)
+        torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated() - before
+        ms = 1e3 * (time.monotonic() - t0)
+        loss = float(sh.full(loss))
+    finally:
+        sh.set_mesh(None)
+    counted, coll = st.peak_bytes, st.peak_collective_bytes
+    ratio = used / counted
+    ok = abs(ratio - 1) <= MEM_TOL and math.isfinite(loss)
+    if rank == 0:
+        top = "; ".join(f"{t['source']} {t['pass']} {t['dtype']} "
+                        f"{t['bytes'] / 2**30:.2f} GiB ({t['share']:.2f})"
+                        for t in st.top_live(3))
+        log(f"dist memory {cfg.name} {cfg.n_layers} layers value_and_grad "
+            f"bf16 {LOSS_MESH} B={LOSS_MESH[0]} S={DIST_MEM_SEQ} "
+            f"V={cfg.vocab}, rank 0: the card's allocator peak over the call {used} bytes "
+            f"({used / 2**30:.2f} GiB) vs OpStats' count {counted} bytes "
+            f"({counted / 2**30:.2f} GiB, of which outputs of collectives "
+            f"{coll} bytes): ratio {ratio:.4f} (tol {MEM_TOL:g}); "
+            f"collective wire bytes {st.coll.wire_bytes:.0f}; top_live "
+            f"{top}; loss {loss:.4f}; {ms:.0f} ms (host clock, under the "
+            f"counter): {ok}")
+    if not ok:
+        failed.append(f"dist memory: ratio {ratio:.4f}, loss {loss}")
+    del dp, db, grads
+    free_cuda()
+    return {"used": used, "counted": counted, "ratio": ratio,
+            "collective": coll}
+
+
 def _dist_rank(rank: int, world: int, init: str, out_dir: str) -> None:
     """One rank of the dist phase (a process of its own, all on cuda:0).
     Rank 0 prints the comparisons as they finish; every check runs, and a
@@ -4381,6 +4548,8 @@ def _dist_rank(rank: int, world: int, init: str, out_dir: str) -> None:
         res["cp"] = _dist_cp(rank, failed)
         res["compression"] = _dist_compression(rank, failed)
         res["pipeline"] = _dist_pipeline(rank, failed)
+        res["loss"] = _dist_loss(rank, failed)
+        res["memory"] = _dist_memory(rank, failed)
         res["staged"] = dict(collectives.staged)
         res["staged_bytes"] = dict(collectives.staged_bytes)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
@@ -4485,6 +4654,15 @@ def phase_dist(card: str, dry=None) -> int:
             f"card: not a multi-GPU step time); peak memory a rank "
             f"{min(r['olmoe']['peak_gib'] for r in ranks):.2f}-"
             f"{max(r['olmoe']['peak_gib'] for r in ranks):.2f} GiB; {card}")
+        ratios = [r["memory"]["ratio"] for r in ranks]
+        log(f"dist memory: the allocator's peak over OpStats' count a rank "
+            f"{min(ratios):.4f}-{max(ratios):.4f} (tol {MEM_TOL:g}), peaks "
+            f"{min(r['memory']['used'] for r in ranks) / 2**30:.2f}-"
+            f"{max(r['memory']['used'] for r in ranks) / 2**30:.2f} GiB, "
+            f"outputs of collectives in the count's peak "
+            f"{min(r['memory']['collective'] for r in ranks) / 2**30:.2f}-"
+            f"{max(r['memory']['collective'] for r in ranks) / 2**30:.2f} "
+            f"GiB; {card}")
         flash = {k: [r["cp"]["flash"][k] for r in ranks]
                  for k in ("bfloat16", "float32", "train")}
         log(f"dist starcoder2 CP flash launches per rank: "
@@ -4524,6 +4702,89 @@ def phase_dist(card: str, dry=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: the dry-run's memory count held to the card's allocator: gemma2-27b at
+#: full width and vocab cut to one pattern repeat (a local and a global
+#: layer), one bf16 train step, unsharded
+MEM_BATCH, MEM_SEQ = 1, 4096
+
+
+def phase_dryrun_memory(card: str) -> int:
+    """``roofline/op_stats.py``'s live-bytes peak on the ``meta`` device
+    (what the dry-run's ``temp_bytes`` counts) against the card's
+    allocator for the same call: ``max_memory_allocated()`` less the bytes
+    allocated before it (parameters, moments, batch).  Two calls:
+    ``value_and_grad`` alone, whose peak the model and the loss make (the
+    f32 logits and their gradient, the kernels' VJPs), and the train step,
+    whose peak AdamW's f32 temporaries make.  Returns the flash launches."""
+    from repro_torch.configs import gemma2_27b
+    from repro_torch.configs.base import Group
+    from repro_torch.models.model import abstract_params
+    from repro_torch.roofline.op_stats import OpStats
+    t0 = time.monotonic()
+    full = gemma2_27b.CONFIG
+    cfg = full.scaled(groups=(Group(1, full.groups[0].pattern),))
+    toks = torch.randint(0, cfg.vocab, (MEM_BATCH, MEM_SEQ),
+                         generator=torch.Generator().manual_seed(SEED))
+
+    def batch(dev):
+        t = toks.to(dev)
+        return {"tokens": t, "targets": torch.roll(t, -1, 1)}
+
+    calls = {"value_and_grad": lambda p, o, b: value_and_grad(p, b, cfg),
+             "train step": make_train_step(cfg)}
+    params = abstract_params(cfg)
+    opt = adamw_init(params)
+    counts = {}
+    for name, fn in calls.items():
+        with OpStats() as st:
+            fn(params, opt, batch("meta"))
+        counts[name] = st
+    del params, opt
+    params = _model(cfg, f"cut: 1 of {full.groups[0].repeats} pattern "
+                    f"repeats (a local and a global layer), full width and "
+                    f"vocab; train B={MEM_BATCH} S={MEM_SEQ}")
+    opt = adamw_init(params)
+    b = batch(DEV)
+    build.reset_launch_counts()
+    bad = []
+    for name, fn in calls.items():
+        free_cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn(params, opt, b)
+        loss = float(out[0][0] if name == "value_and_grad"
+                     else out[2]["loss"])
+        torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated() - before
+        if name == "train step":
+            params, opt = out[0], out[1]
+        del out
+        st = counts[name]
+        ratio = used / st.peak_bytes
+        ok = abs(ratio - 1) <= MEM_TOL and math.isfinite(loss)
+        top = "; ".join(f"{t['source']} {t['pass']} {t['dtype']} "
+                        f"{t['bytes'] / 2**30:.2f} GiB ({t['share']:.2f})"
+                        for t in st.top_live(3))
+        log(f"dryrun memory {cfg.name} 2 layers {name} bf16 B={MEM_BATCH} "
+            f"S={MEM_SEQ} V={cfg.vocab}: the card's allocator peak over the "
+            f"call {used} bytes ({used / 2**30:.2f} GiB) vs OpStats' count "
+            f"on meta {st.peak_bytes} bytes ({st.peak_bytes / 2**30:.2f} "
+            f"GiB): ratio {ratio:.4f} (tol {MEM_TOL:g}); top_live {top}; "
+            f"loss {loss:.4f}; {card}: {ok}")
+        if not ok:
+            bad.append(name)
+    flash = build.launch_counts.get("flash_attention", 0)
+    log(f"dryrun memory: flash launches {flash}; "
+        f"{time.monotonic() - t0:.1f} s")
+    del params, opt, b
+    free_cuda()
+    if bad or flash == 0:
+        raise AssertionError(f"dryrun memory: the count and the card differ "
+                             f"({bad}) or no flash launch ({flash})")
+    return flash
+
+
 # ----------------------------------------------------------------------------
 
 
@@ -4555,6 +4816,7 @@ def main() -> int:
         card = phase_card()
         phase_build()
         launches = phase_dist(card)
+        launches["flash_attention"] += phase_dryrun_memory(card)
         log(f"dist alone: launches {launches}; {card}")
         return 0
     if sys.argv[1:2] == ["--runtime"]:
@@ -4663,7 +4925,8 @@ def main() -> int:
         # launches and the sharded layouts' flash and scan launches
         for name, n in phase_dist(card, (dry, dry_dir)).items():
             launches[name] += n
-        done("dist")
+        launches["flash_attention"] += phase_dryrun_memory(card)
+        done("dist, dryrun memory")
     except BaseException:
         for *_, p in dry:
             p.kill()

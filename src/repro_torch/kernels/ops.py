@@ -69,7 +69,8 @@ def paged_scatter(k_pages, v_pages, index, k_vals, v_vals, *,
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None, q_offset=0, impl: Optional[str] = None):
     if q.device.type == "meta":
-        return _meta_flash(q, k, v, causal, window, q_offset)
+        return _meta_flash(q, k, v, causal, window, softcap, scale,
+                           q_offset)
     if resolve_impl(impl, q.device) == "cuda":
         return _fa.FlashAttention.apply(q, k, v, causal, window, softcap,
                                         scale, q_offset)
@@ -90,12 +91,13 @@ def flash_pairs(Sq: int, Sk: int, causal: bool, window: int,
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def _meta_flash(q, k, v, causal, window, q_offset):
+def _meta_flash(q, k, v, causal, window, softcap, scale, q_offset):
     """Flash attention on the ``meta`` device (the dry-run): no values, the
     output's shape, and the kernel's own work recorded with the dry-run's
     counters: 2 (D + Dv) operations per unmasked (query, key, head), each
     input read and the output written once.  Under autograd the backward
-    is recorded as the plain VJP's products, 2.5x the forward's."""
+    is recorded as the plain VJP's products, 2.5x the forward's, and holds
+    the plain VJP's temporaries, as the card's backward does."""
     from repro_torch.roofline.op_stats import record_kernel
     B, Sq, H, D = q.shape
     Sk, Dv = k.shape[1], v.shape[3]
@@ -103,8 +105,12 @@ def _meta_flash(q, k, v, causal, window, q_offset):
                                                  q_offset)
     nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) \
         * q.element_size()
+    args = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset)
+    plain = lambda q, k, v: _ref.flash_attention_ref(q, k, v, **args)
     return record_kernel("flash_attention", (B, Sq, H, Dv), q.dtype, flops,
-                         nbytes, q, k, v)
+                         nbytes, q, k, v,
+                         plain=(plain, tuple(sorted(args.items()))))
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, window=0, softcap=0.0,
@@ -117,7 +123,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=0, softcap=0.0,
 def linear_scan(q, k, v, log_decay, *, state=None, bonus=None, chunk=128,
                 impl: Optional[str] = None):
     if q.device.type == "meta":
-        return _meta_scan(q, k, v, chunk)
+        return _meta_scan(q, k, v, log_decay, bonus, chunk)
     if resolve_impl(impl, q.device) == "cuda":
         check(state is None, _ls.ZERO_STATE_ONLY)
         return _ls.LinearScan.apply(q, k, v, log_decay, bonus, chunk, 75.0)
@@ -125,11 +131,12 @@ def linear_scan(q, k, v, log_decay, *, state=None, bonus=None, chunk=128,
                                 chunk=chunk)
 
 
-def _meta_scan(q, k, v, chunk):
+def _meta_scan(q, k, v, log_decay, bonus, chunk):
     """The scan on the ``meta`` device (the dry-run): the output (B, S, H,
     V) and final state (B, H, K, V) f32, and the chunked algorithm's work:
     per chunk of L keys the intra-chunk products 2 L^2 (K + V) and the
-    state's 4 L K V a head, the inputs read and the outputs written once."""
+    state's 4 L K V a head, the inputs read and the outputs written once.
+    Its backward holds the plain VJP's temporaries, as the card's does."""
     from repro_torch.roofline.op_stats import record_kernel
     B, S, H, K = q.shape
     Vd = v.shape[3]
@@ -137,8 +144,10 @@ def _meta_scan(q, k, v, chunk):
     flops = B * H * S * (2 * L * (K + Vd) + 4 * K * Vd)
     nbytes = (3 * B * S * H * K + 2 * B * S * H * Vd) * q.element_size() \
         + 4 * B * S * H * K + 4 * B * H * K * Vd
+    plain = lambda q, k, v, ld, u: _ref.linear_scan_ref(
+        q, k, v, ld, bonus=u, chunk=chunk, clamp=75.0)[0]
     y = record_kernel("linear_scan", (B, S, H, Vd), q.dtype, flops, nbytes,
-                      q, k, v)
+                      q, k, v, log_decay, bonus, plain=(plain, (chunk,)))
     return y, torch.zeros((B, H, K, Vd), dtype=torch.float32, device="meta")
 
 

@@ -18,10 +18,13 @@ sequence slice scores more pairs.  Where a cell has such a layer
 (:func:`ranks_differ`), it runs as both ranks, and the roofline and the
 memory take the larger of each count; the JSON keeps both ranks' counts
 (``ranks``).  Elsewhere every ``model`` rank has the same shapes and rank
-0 alone runs.  ``top_products`` are the busier rank's by FLOPs and
+0 alone runs.  ``top_products`` are the busier rank's by FLOPs,
 ``top_collectives`` (the collectives by kind, payload, group and the
 port's source line, each with its share of the rank's collective bytes)
-the busier rank's by collective bytes.
+the busier rank's by collective bytes, and ``top_live`` (the live bytes
+at the peak by the port's source line, pass and dtype, each with its
+share of the peak; the outputs of collectives are live bytes too) the
+rank's with the larger peak; each rank's own is under ``ranks``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2_27b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --out results/dryrun_torch
@@ -235,12 +238,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                       "hbm_bytes_raw": st.hbm_bytes_raw,
                       "collective_bytes": st.coll.wire_bytes,
                       "argument_bytes": arg_b, "output_bytes": out_b,
-                      "temp_bytes": st.peak_bytes, "alias_bytes": alias_b}
+                      "temp_bytes": st.peak_bytes, "alias_bytes": alias_b,
+                      "top_live": st.top_live()}
                   for r, (st, arg_b, out_b, alias_b) in runs.items()}
-        most = {k: max(c[k] for c in counts.values()) for k in counts[0]}
+        most = {k: max(c[k] for c in counts.values()) for k in counts[0]
+                if k != "top_live"}
         by_flops = runs[max(ranks, key=lambda r: counts[r]["flops"])][0]
         by_coll = runs[max(ranks, key=lambda r:
                            counts[r]["collective_bytes"])][0]
+        by_live = counts[max(ranks, key=lambda r: counts[r]["temp_bytes"])]
         meta["model_flops"] = roof.analytic_model_flops(cfg, shape, n_dev)
         rl = roof.Roofline(flops=most["flops"], hbm_bytes=most["hbm_bytes"],
                            coll=by_coll.coll, model_flops=meta["model_flops"],
@@ -256,6 +262,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                      "kernels": runs[0][0].kernels,
                      "top_products": by_flops.top_products(),
                      "top_collectives": by_coll.top_collectives(),
+                     "top_live": by_live["top_live"],
                      "ops": runs[0][0].n_ops})
         flops = "/".join(f"{counts[r]['flops']:.3e}" for r in ranks)
         print(f"[dryrun] {arch} x {shape_name} ({mesh_name}): OK "
@@ -264,6 +271,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"t_step>={rl.step_time_s * 1e3:.1f}ms "
               f"useful={rl.useful_flops_fraction:.2f} "
               f"flops[rank {'/'.join(map(str, ranks))}]={flops}", flush=True)
+        print(f"[dryrun]   live at the peak: " + "; ".join(
+            f"{t['source']} {t['pass']} {t['dtype']} "
+            f"{t['bytes'] / 2**30:.2f}GiB ({t['share']:.2f})"
+            for t in by_live["top_live"][:3]), flush=True)
     except Exception as e:  # noqa: BLE001 -- record failures as results
         meta.update({"status": "error", "error": f"{type(e).__name__}: {e}",
                      "trace": traceback.format_exc()[-2000:]})

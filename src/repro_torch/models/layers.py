@@ -101,7 +101,13 @@ def stack_specs(tree, repeats: int):
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    if x32 is x or (torch.is_grad_enabled()
+                    and (x.requires_grad or scale.requires_grad)):
+        out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    else:
+        # no gradient taken: the same products in the same order, in place
+        # on the f32 copy, so one f32 tensor of x's size is live, not two
+        out = x32.mul_(torch.rsqrt(var + eps)).mul_(1.0 + scale.float())
     return out.to(x.dtype)
 
 

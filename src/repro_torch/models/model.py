@@ -49,6 +49,7 @@ too, and the kernels run on each rank's local shards
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -60,7 +61,8 @@ from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.ssm import (_st_write, apply_mamba2, apply_rwkv6,
                                     mamba2_dims, mamba2_specs, rwkv6_dims,
                                     rwkv6_specs)
-from repro_torch.parallel.sharding import constrain, under_mesh, unshard
+from repro_torch.parallel.sharding import (constrain, is_dtensor,
+                                          under_mesh, unshard)
 
 Spec = L.Spec
 
@@ -343,6 +345,7 @@ def unstack(gp) -> List[Any]:
 
 
 _STREAM = ("batch", None, None)    # the residual stream's logical layout
+_LOGITS = ("batch", None, "vocab")  # the logits' logical layout
 
 
 def _residual(x, o):
@@ -456,12 +459,18 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
     new_cache: Dict[str, Any] = {}
     for gi, g in enumerate(groups_def):
         gc = cache["groups"][f"g{gi}"] if cache is not None else None
-        # prefill collects each repeat's cache and stacks it at the end
-        produced: Dict[str, Dict[str, list]] = {}
+        n_rep = g.repeats
+        # prefill writes each repeat's cache, laid out as decode reads it,
+        # into the group's stacked cache as the layer produces it: (local
+        # buffer, a layer's tensor)
+        produced: Dict[str, Dict[str, tuple]] = {}
+        axes = cache_axes(cfg)["groups"][f"g{gi}"] if mode == "prefill" \
+            else None
 
         # g, gc and produced bound now: under remat the backward's
         # recompute calls this after the loop has moved on
-        def repeat(x, aux, lp, rep, g=g, gc=gc, produced=produced):
+        def repeat(x, aux, lp, rep, g=g, gc=gc, produced=produced,
+                   axes=axes):
             x = constrain(x, _STREAM)
             lp, shared = _at_use(lp, mode), _at_use(shared_params, mode)
             for pi, ls in enumerate(g.pattern):
@@ -476,7 +485,9 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
                 if mode == "prefill" and nc:
                     per = produced.setdefault(key, {})
                     for name, t in nc.items():
-                        per.setdefault(name, []).append(t)
+                        t = constrain(t, axes[key][name][1:])
+                        buf, _ = per.get(name, (None, None))
+                        per[name] = (_write_layer(buf, t, rep, n_rep), t)
             return x, aux
 
         # train: each repeat one call under cfg.remat, its weight slices
@@ -489,9 +500,37 @@ def _run_groups(groups_params, groups_def, x, *, cfg, mode, cache, pos,
             new_cache[f"g{gi}"] = gc
         elif mode == "prefill":
             new_cache[f"g{gi}"] = {
-                key: {name: torch.stack(ts) for name, ts in per.items()}
+                key: {name: _stacked(buf, t) for name, (buf, t) in per.items()}
                 for key, per in produced.items()}
     return x, new_cache, aux
+
+
+def _write_layer(buf, t, rep: int, n: int):
+    """Layer ``rep`` of ``n``'s cache leaf ``t`` (a rank's local shard of
+    a DTensor) written into ``buf``, its stacked ``(n, ...)`` buffer,
+    allocated at the first layer: the cache is held once, as the
+    reference's scan carries it, not as ``n`` layers' tensors and their
+    stacked copy at once."""
+    local = t.to_local() if is_dtensor(t) else t
+    if buf is None:
+        buf = local.new_empty((n,) + tuple(local.shape))
+    buf[rep].copy_(local)
+    return buf
+
+
+def _stacked(buf, like):
+    """The stacked buffer as the tensor ``torch.stack`` of the layers
+    would give: a DTensor laid out as a layer's tensor ``like``, its
+    layer dim whole."""
+    if not is_dtensor(like):
+        return buf
+    from torch.distributed.tensor import DTensor, Shard
+    shape = torch.Size((buf.shape[0],) + tuple(like.shape))
+    pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+          for p in like.placements]
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(buf, like.device_mesh, pl, run_check=False,
+                              shape=shape, stride=stride)
 
 
 def encode(params: Dict[str, Any], frontend: torch.Tensor, *,
@@ -563,7 +602,7 @@ def apply_model(
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=dev) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
-    logits = constrain(logits, ("batch", None, "vocab"))
+    logits = constrain(logits, _LOGITS)
 
     out_cache = None
     if mode == "decode":

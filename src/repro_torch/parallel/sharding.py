@@ -535,18 +535,6 @@ def replicated_like(t: torch.Tensor, ref):
                               run_check=False)
 
 
-def vocab_ids(logits):
-    """``arange(V)`` (V: the DTensor ``logits``' last dim) laid out as that
-    dim is: sharded where the logits' vocab dim is, else replicated."""
-    from torch.distributed.tensor import Replicate, Shard
-    last = logits.dim() - 1
-    pl = [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
-          for p in logits.placements]
-    ids = torch.arange(logits.shape[-1], device=logits.device)
-    from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(ids, logits.device_mesh, pl, src_data_rank=None)
-
-
 def argmax_last(x):
     """``x.argmax(-1)``; a DTensor's last dim is gathered whole first where
     it is sharded (the vocab over ``model``), so each rank takes the

@@ -19,7 +19,12 @@ DTensor's sharding propagation turns each global op into -- and records:
   ``c10d`` send / recv), with its group size and payload, through the ring
   formulas of ``roofline/analysis.py``;
 * live bytes: the peak of the bytes held by tensors the step created
-  (saved activations included), for the dry-run's ``temp_bytes``;
+  (saved activations, the outputs of collectives and the temporaries of
+  the kernels' backward, the plain version's VJP, included), for the
+  dry-run's ``temp_bytes``; and at that peak the live bytes by their
+  source (the port's line that made each tensor, the pass, the dtype):
+  :meth:`OpStats.top_live` says what holds a rank's memory, the dry-run's
+  ``top_live``;
 * FLOPs per product, keyed by the op and its input shapes (a kernel by
   its name and its inputs' shapes): :meth:`OpStats.top_products` says
   which products make a rank's FLOPs, the dry-run's ``top_products``;
@@ -36,6 +41,8 @@ bodies by their trip counts).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import sys
 import weakref
@@ -83,6 +90,7 @@ _SOURCE_DIRS = tuple(os.sep + os.path.join("repro_torch", d) + os.sep
 _NOT_SOURCE = os.path.join("repro_torch", "parallel", "sharding.py")
 
 
+@functools.lru_cache(maxsize=None)
 def _port_path(filename: str) -> Optional[str]:
     """``filename`` as ``repro_torch/...`` when it can be a source."""
     if filename.endswith(_NOT_SOURCE) or not any(
@@ -93,8 +101,15 @@ def _port_path(filename: str) -> Optional[str]:
 
 def _node_source(node) -> Optional[str]:
     """The innermost source frame of the forward stack anomaly mode
-    recorded when autograd ``node`` was made."""
-    stack = node.metadata.get("traceback_") or ()
+    recorded when autograd ``node`` was made (kept in the node's metadata:
+    a backward runs many ops under one node)."""
+    meta = node.metadata
+    if "op_stats_source" not in meta:
+        meta["op_stats_source"] = _stack_source(meta.get("traceback_") or ())
+    return meta["op_stats_source"]
+
+
+def _stack_source(stack) -> Optional[str]:
     for entry in reversed(stack):
         line = entry.lstrip().split("\n", 1)[0]       # File "...", line N,
         if not line.startswith('File "'):
@@ -107,12 +122,13 @@ def _node_source(node) -> Optional[str]:
 
 
 def collective_source() -> Tuple[str, str]:
-    """(the port's source line of the collective being issued, "forward"
-    or "backward").  The innermost frame of the port on the live stack;
-    in the backward pass, where the stack reaches the autograd engine
-    first (a gradient op, a pin's backward), the line of the forward op
-    whose gradient issues it, as anomaly mode recorded it; "unknown" when
-    neither names a line of the port."""
+    """(the port's source line of the op being run -- a collective, or a
+    tensor the step holds -- "forward" or "backward").  The innermost
+    frame of the port on the live stack; in the backward pass, where the
+    stack reaches the autograd engine first (a gradient op, a pin's
+    backward), the line of the forward op whose gradient issues it, as
+    anomaly mode recorded it; "unknown" when neither names a line of the
+    port."""
     node = torch._C._current_autograd_node()
     f = sys._getframe(1)
     while f is not None and f.f_code.co_name != "_engine_run_backward":
@@ -155,8 +171,16 @@ class OpStats(TorchDispatchMode):
     n_ops: int = 0
     live_bytes: int = 0
     peak_bytes: int = 0
+    live_collective_bytes: int = 0   # of live_bytes: outputs of collectives
+    _peak_collective: int = 0        # :attr:`peak_collective_bytes`
     products: Dict[Tuple[str, Tuple], float] = field(default_factory=dict)
     by_source: Dict[Tuple, List[float]] = field(default_factory=dict)
+    live_by_source: Dict[Tuple, int] = field(default_factory=dict)
+    peak_by_source: Dict[Tuple, int] = field(default_factory=dict)
+    _at_peak: bool = False       # live bytes are at a new peak not yet kept
+    # count live bytes alone, under this source (:meth:`plain_vjp`)
+    _live_only: Optional[Tuple[str, str]] = None
+    _vjp: Optional["_VJPPeak"] = None   # the plain VJP being measured
 
     def __post_init__(self):
         super().__init__()
@@ -181,16 +205,95 @@ class OpStats(TorchDispatchMode):
         _ACTIVE.remove(self)
 
     # -- live bytes ----------------------------------------------------------
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, source: Tuple[str, str],
+               collective: bool = False) -> None:
+        """Count ``t`` live until it is freed, under (``source``, its
+        dtype); ``collective``: ``t`` is a collective's output."""
         n = _nbytes(t)
         if not n:
             return
+        key = (*source, str(t.dtype).replace("torch.", ""))
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-        weakref.finalize(t, self._release, n)
+        self.live_collective_bytes += n if collective else 0
+        self.live_by_source[key] = self.live_by_source.get(key, 0) + n
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self._at_peak = True
+        if self._vjp is not None:
+            self._vjp.add(n, key[2])
+        weakref.finalize(t, self._release, n, key, collective, self._vjp)
 
-    def _release(self, n: int) -> None:
+    def _release(self, n: int, key: Tuple, collective: bool,
+                 vjp: Optional["_VJPPeak"]) -> None:
+        self._keep_peak()
         self.live_bytes -= n
+        self.live_collective_bytes -= n if collective else 0
+        self.live_by_source[key] -= n
+        if vjp is not None:
+            vjp.add(-n, key[2])
+
+    @property
+    def peak_collective_bytes(self) -> int:
+        """Of :attr:`peak_bytes`, the bytes of collectives' outputs."""
+        self._keep_peak()
+        return self._peak_collective
+
+    def _keep_peak(self) -> None:
+        """Keep the live bytes by source (and the collectives' share) as
+        they are, if this is the peak and the first release after it is
+        about to leave it."""
+        if self._at_peak:
+            self.peak_by_source = {k: v for k, v in
+                                   self.live_by_source.items() if v}
+            self._peak_collective = self.live_collective_bytes
+            self._at_peak = False
+
+    @contextlib.contextmanager
+    def _live_only_under(self, source: Tuple[str, str]):
+        """Within it ops count their live bytes under ``source`` and
+        nothing else (no forward stacks kept: their nodes are not the
+        step's)."""
+        was, self._live_only = self._live_only, source
+        try:
+            with torch.autograd.set_detect_anomaly(False):
+                yield
+        finally:
+            self._live_only = was
+
+    def plain_vjp(self, key, fn, ins, need, g) -> List:
+        """The grads of ``fn(*ins)`` against ``g`` (for each input that
+        ``need`` marks; None for the others) on meta, as a kernel's stand-in
+        computes its backward: the temporaries of the plain VJP the card's
+        backward runs count among the live bytes, under the stand-in's
+        source; their work is the stand-in's own record.  The first call
+        for ``key`` (the kernel, its arguments and its inputs' shapes) runs
+        the VJP and keeps the peak of its live bytes by dtype; a later one
+        holds that peak for a moment (every layer of a model runs the same
+        shapes, and the VJP on meta costs seconds)."""
+        with self._live_only_under(collective_source()):
+            peak = _VJP_PEAKS.get(key)
+            if peak is not None:
+                held = [torch.empty(n // getattr(torch, d).itemsize,
+                                    dtype=getattr(torch, d), device="meta")
+                        for d, n in peak.items()]
+                del held
+                return [torch.zeros_like(t) if n else None
+                        for t, n in zip(ins, need)]
+            xs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ins, need)]
+            self._vjp = measured = _VJPPeak()
+            try:
+                with torch.enable_grad():
+                    out = fn(*xs)
+                    got = iter(torch.autograd.grad(
+                        out, [x for x in xs if x is not None
+                              and x.requires_grad], g))
+                grads = [next(got) if x is not None and x.requires_grad
+                         else None for x in xs]
+            finally:
+                self._vjp = None
+            _VJP_PEAKS[key] = measured.at_peak
+            return grads
 
     # -- recording -----------------------------------------------------------
     def add_collective(self, kind: str, payload: float, n: int,
@@ -234,6 +337,12 @@ class OpStats(TorchDispatchMode):
             # global-shape fake tensors to learn the output's metadata:
             # no work of any rank
             return out
+        if self._live_only is not None:
+            if not any(r.alias_info is not None
+                       for r in func._schema.returns):
+                for t in _tensors(out):
+                    self._track(t, self._live_only)
+            return out
         self.n_ops += 1
         ns = func.namespace
         name = func._schema.name.split("::")[-1]
@@ -246,8 +355,14 @@ class OpStats(TorchDispatchMode):
             n = _resolve_process_group(group).size()
             kind = _FUNCOL[name]
             t = outs[0] if kind == "all-gather" else ins[0]
+            source = collective_source()
             self.add_collective(kind, _nbytes(t), n, t.shape, t.dtype,
-                                collective_source())
+                                source)
+            if not name.endswith("_"):
+                # a new tensor the step holds (no traffic of its own:
+                # the wire bytes above are the collective's cost)
+                for o in outs:
+                    self._track(o, source, collective=True)
             return out
         if ns == "c10d" and name in _C10D:
             pg = next((a for a in args if hasattr(a, "size")
@@ -268,8 +383,9 @@ class OpStats(TorchDispatchMode):
             self._tally(name, tuple(tuple(t.shape) for t in ins), f)
         views = any(r.alias_info is not None for r in func._schema.returns)
         if name in _ALLOC:
+            source = collective_source()
             for t in outs:
-                self._track(t)
+                self._track(t, source)
             return out
         if views and name not in ("copy_", "fill_", "zero_"):
             return out                      # a view or in-place: no traffic
@@ -277,9 +393,10 @@ class OpStats(TorchDispatchMode):
         self.hbm_bytes_raw += nbytes
         if name not in _MOVEMENT:
             self.hbm_bytes += nbytes
-        if not views:
+        if not views and outs:
+            source = collective_source()
             for t in outs:
-                self._track(t)
+                self._track(t, source)
         return out
 
     def top_products(self, n: int = 10) -> List[Dict]:
@@ -303,6 +420,16 @@ class OpStats(TorchDispatchMode):
                 for (kind, shape, dtype, g, src, pas), (c, b)
                 in top[:n]]
 
+    def top_live(self, n: Optional[int] = None) -> List[Dict]:
+        """The live bytes at this rank's peak by (source line, pass,
+        dtype), the most first (all of them, or the first ``n``): each with
+        its bytes and their share of the peak."""
+        self._keep_peak()
+        top = sorted(self.peak_by_source.items(), key=lambda kv: -kv[1])
+        return [{"source": src, "pass": pas, "dtype": dtype, "bytes": b,
+                 "share": b / self.peak_bytes if self.peak_bytes else 0.0}
+                for (src, pas, dtype), b in top[:n]]
+
     def as_dict(self) -> Dict:
         return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,
                 "hbm_bytes_raw": self.hbm_bytes_raw,
@@ -317,37 +444,76 @@ def active() -> Optional[OpStats]:
     return _ACTIVE[-1] if _ACTIVE else None
 
 
+class _VJPPeak:
+    """The live bytes by dtype at the peak of the tensors one plain VJP
+    makes (:meth:`OpStats.plain_vjp`)."""
+
+    def __init__(self):
+        self.live: Dict[str, int] = {}
+        self.total = 0
+        self.peak = 0
+        self.at_peak: Dict[str, int] = {}
+
+    def add(self, n: int, dtype: str) -> None:
+        self.live[dtype] = self.live.get(dtype, 0) + n
+        self.total += n
+        if self.total > self.peak:
+            self.peak, self.at_peak = self.total, {
+                d: v for d, v in self.live.items() if v}
+
+
+# (kernel, its arguments, input shapes, dtypes, grads needed) -> the peak
+# of its plain VJP's live bytes by dtype
+_VJP_PEAKS: Dict[Tuple, Dict[str, int]] = {}
+
+
 class _MetaKernel(torch.autograd.Function):
     """A kernel's stand-in on the meta device: the output's shape, the
     kernel's work recorded forward, and the backward's (the plain version's
     VJP: its products, 2.5x the forward's operations, and the inputs, the
-    output's gradient and the inputs' gradients moved once)."""
+    output's gradient and the inputs' gradients moved once).  It keeps its
+    inputs for the backward, as the kernel's ``autograd.Function`` does,
+    and with ``plain`` its backward recomputes ``plain(*inputs)`` and takes
+    its VJP on meta, as the card's backward does, so that the VJP's
+    temporaries count among the live bytes (:meth:`OpStats.plain_vjp`:
+    their work is the one recorded above)."""
 
     @staticmethod
-    def forward(ctx, name, shape, dtype, flops, nbytes, *inputs):
-        ctx.name, ctx.flops, ctx.nbytes = name, flops, nbytes
-        ctx.shapes = [(t.shape, t.dtype) for t in inputs]
+    def forward(ctx, name, shape, dtype, flops, nbytes, plain, *inputs):
+        ctx.name, ctx.flops, ctx.nbytes, ctx.plain = name, flops, nbytes, plain
+        ctx.shapes = tuple(tuple(t.shape) for t in inputs if t is not None)
+        ctx.dtypes = tuple(t.dtype for t in inputs if t is not None)
+        ctx.save_for_backward(*inputs)
         rec = active()
         if rec is not None:
-            rec.add_kernel(name, flops, nbytes,
-                           tuple(tuple(s) for s, _ in ctx.shapes))
+            rec.add_kernel(name, flops, nbytes, ctx.shapes)
         return torch.empty(shape, dtype=dtype, device="meta")
 
     @staticmethod
     def backward(ctx, g):
         rec = active()
+        ins = ctx.saved_tensors
+        need = ctx.needs_input_grad[6:]
         if rec is not None:
             rec.add_kernel(ctx.name + ".vjp", 2.5 * ctx.flops,
-                           2 * ctx.nbytes,
-                           tuple(tuple(s) for s, _ in ctx.shapes))
-        return (None,) * 5 + tuple(
-            torch.zeros(s, dtype=d, device="meta") for s, d in ctx.shapes)
+                           2 * ctx.nbytes, ctx.shapes)
+        if ctx.plain is None or rec is None:
+            grads = [torch.zeros_like(t) if n else None
+                     for t, n in zip(ins, need)]
+        else:
+            fn, args = ctx.plain
+            grads = rec.plain_vjp((ctx.name, args, ctx.shapes, ctx.dtypes,
+                                   need), fn, ins, need, g)
+        return (None,) * 6 + tuple(grads)
 
 
 def record_kernel(name: str, shape, dtype, flops: float, nbytes: float,
-                  *inputs) -> torch.Tensor:
+                  *inputs, plain=None) -> torch.Tensor:
     """An empty meta tensor of ``shape`` standing for kernel ``name``'s
     output, with its work recorded in the active :class:`OpStats` (none:
-    nothing recorded) and a backward that records its VJP's."""
+    nothing recorded) and a backward that records its VJP's.  ``plain`` is
+    the plain version whose VJP the kernel's backward takes: (a function of
+    ``inputs``, None allowed among them; the hashable arguments it closes
+    over)."""
     return _MetaKernel.apply(name, tuple(shape), dtype, float(flops),
-                             float(nbytes), *inputs)
+                             float(nbytes), plain, *inputs)

@@ -16,6 +16,7 @@ shards.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -23,29 +24,94 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import apply_attn
-from repro_torch.models.model import apply_model, cache_axes
-from repro_torch.parallel.sharding import (argmax_last, backward_under_mesh,
-                                          constrain, is_dtensor, under_mesh,
-                                          unshard, vocab_ids)
+from repro_torch.models.model import (_LOGITS, _STREAM, apply_model,
+                                      cache_axes)
+from repro_torch.parallel.sharding import (all_reduce, argmax_last,
+                                          backward_under_mesh, constrain,
+                                          is_dtensor, layout, local_map,
+                                          replicated_like, shard_index,
+                                          under_mesh, unshard)
 from repro_torch.optim.adamw import (AdamWState, adamw_update,
                                      cosine_schedule, tree_leaves, tree_map,
                                      tree_unflatten)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean CE over (B, S), in f32: logsumexp minus the target's logit."""
+    """Mean CE over (B, S), in f32: logsumexp minus the target's logit.
+    Under a mesh the reduction stays where the logits lie
+    (:func:`_cross_entropy_sharded`)."""
+    if is_dtensor(logits):
+        return _cross_entropy_sharded(logits, targets)
     l32 = logits.float()
     lse = torch.logsumexp(l32, dim=-1)
-    if is_dtensor(l32):
-        # vocab may be model-sharded: a one-hot product keeps the reduction
-        # local + one sum over the shards, as the reference's einsum does;
-        # the vocab ids laid out as the logits' vocab dim, so each rank
-        # compares its own shard only
-        ids = vocab_ids(l32)
-        ll = (l32 * (targets.long()[..., None] == ids)).sum(-1)
-    else:
-        ll = l32.gather(-1, targets.long()[..., None])[..., 0]
+    ll = l32.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - ll).mean()
+
+
+def _cross_entropy_sharded(logits, targets):
+    """The reference's partitioned loss ("keep the reduction local + one
+    psum, no gather of the full vocab"): the batch stays sharded over the
+    FSDP axes and the vocab over ``model``; each rank takes its rows'
+    local max and sum of exponentials and the target's logit where its
+    vocab shard holds it, and one reduction of (B_local, S) f32 rows over
+    ``model`` combines each.  Written on the local shards: left to
+    DTensor's propagation, the logsumexp gathers the whole batch's f32
+    logits onto every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = logits.device_mesh
+    lpl = layout(mesh, _LOGITS, logits)
+    tpl = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+           for p in lpl]
+    if not is_dtensor(targets):
+        targets = replicated_like(targets.to(logits.device), logits)
+    idx, vocab_groups = shard_index(mesh, lpl, 2)
+    n_vocab = math.prod(mesh.size(m) for m, p in enumerate(lpl)
+                        if isinstance(p, Shard) and p.dim == 2)
+    lo = idx * -(-logits.shape[-1] // n_vocab)   # DTensor's chunks: ceil
+    row_groups = [mesh.get_group(m) for m, p in enumerate(lpl)
+                  if isinstance(p, Shard) and p.dim != 2]
+    n_rows = logits.shape[0] * logits.shape[1]
+
+    def local(lg, tg):
+        return _VocabParallelCE.apply(lg, tg, lo, vocab_groups, row_groups,
+                                      n_rows)
+
+    return local_map(local, [Replicate()] * mesh.ndim, (lpl, tpl),
+                     (lpl, tpl))(logits, targets)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The mean CE of one rank's logits shard ``(B_l, S, V_l)``, its vocab
+    from ``lo``: the max, the sum of exponentials and the target's logit
+    each reduced over ``vocab_groups`` as (B_l, S) rows, the rows' sum
+    over ``row_groups`` (the axes that shard the batch) over ``n`` rows.
+    The backward is local: softmax minus the one-hot, recomputed from the
+    saved logits and logsumexp, no collective."""
+
+    @staticmethod
+    def forward(ctx, lg, tg, lo, vocab_groups, row_groups, n):
+        l32 = lg.float()
+        m = all_reduce(l32.amax(-1), "max", vocab_groups)
+        sumexp = all_reduce((l32 - m[..., None]).exp_().sum(-1), "sum",
+                            vocab_groups)
+        lse = m + sumexp.log()
+        t = tg.long() - lo
+        mine = (t >= 0) & (t < lg.shape[-1])
+        t = t.clamp(0, lg.shape[-1] - 1)
+        ll = l32.gather(-1, t[..., None])[..., 0]
+        ll = all_reduce(torch.where(mine, ll, 0.0), "sum", vocab_groups)
+        total = all_reduce((lse - ll).sum().reshape(1), "sum", row_groups)
+        ctx.save_for_backward(lg, lse, t, mine)
+        ctx.n = n
+        return total[0] / n
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, t, mine = ctx.saved_tensors
+        p = lg.to(torch.float32, copy=True).sub_(lse[..., None]).exp_()
+        p.scatter_add_(-1, t[..., None], -mine[..., None].to(p.dtype))
+        p.mul_(g / ctx.n)
+        return p.to(lg.dtype), None, None, None, None, None
 
 
 def _mtp_loss(params, cfg: ArchConfig, hidden, tokens, targets,
@@ -64,13 +130,20 @@ def _mtp_loss(params, cfg: ArchConfig, hidden, tokens, targets,
     hh = L.rms_norm(h, lp["norm1"], cfg.norm_eps)
     o, _ = apply_attn(lp["attn"], hh, cfg=cfg, kind="full", mode="train",
                       impl=impl)
-    h = h + o
+    h = constrain(h + o, _STREAM)
     hh = L.rms_norm(h, lp["norm2"], cfg.norm_eps)
-    h = h + L.mlp_apply(lp["mlp"], hh, cfg.act)
+    h = constrain(h + L.mlp_apply(lp["mlp"], hh, cfg.act), _STREAM)
+    return _mtp_head_loss(params, h, targets)
+
+
+def _mtp_head_loss(params, h, targets):
+    """The MTP head's logits, laid out as the main head's (the batch over
+    the FSDP axes, the vocab over ``model``), and their CE against the
+    targets two ahead."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = h @ unshard(head).to(dt)
+    logits = constrain(L.linear(h, unshard(head)), _LOGITS)
     t2 = torch.roll(targets, -1, dims=1)
     return cross_entropy(logits[:, :-2], t2[:, :-2])
 

@@ -32,7 +32,18 @@ And the repairs of the sharded step's collectives and outputs:
   decode reads: every prefill cell's output bytes (whisper prefill_32k
   too);
 * rank 0 alone was counted, the causal context-parallel rank that scores
-  the fewest pairs: starcoder2 and whisper prefill_32k's busiest rank."""
+  the fewest pairs: starcoder2 and whisper prefill_32k's busiest rank.
+
+And a device's memory (``per_device_total_gib``, the outputs of
+collectives counted among the live bytes):
+
+* the loss gathered the whole batch's f32 logits onto every rank (and
+  deepseek's MTP head all-reduced vocab-wide logits): every train_4k
+  cell, olmoe's and deepseek's added for it, within the reference's
+  bytes a device, and the loss's own collectives a sliver of the cell's;
+* a prefill held its cache twice (each layer's tensors and their stacked
+  copy) and rms_norm two f32 temporaries: no prefill cell above the
+  ratio it read before the repair."""
 
 import json
 import subprocess
@@ -49,7 +60,8 @@ CELLS = [("olmoe_1b_7b", "decode_32k"), ("deepseek_v3_671b", "decode_32k"),
          ("whisper_small", "train_4k"), ("gemma2_27b", "train_4k"),
          ("codeqwen15_7b", "decode_32k"), ("zamba2_2p7b", "prefill_32k"),
          ("zamba2_2p7b", "train_4k"), ("stablelm_12b", "prefill_32k"),
-         ("whisper_small", "prefill_32k")]
+         ("whisper_small", "prefill_32k"), ("olmoe_1b_7b", "train_4k"),
+         ("deepseek_v3_671b", "train_4k")]
 MOE_DECODE = [("olmoe_1b_7b", "decode_32k"),
               ("deepseek_v3_671b", "decode_32k")]
 GATHERED = [("zamba2_2p7b", "prefill_32k"), ("zamba2_2p7b", "train_4k"),
@@ -57,10 +69,20 @@ GATHERED = [("zamba2_2p7b", "prefill_32k"), ("zamba2_2p7b", "train_4k"),
 PREFILL = [c for c in CELLS if c[1] == "prefill_32k"]
 CONTEXT_PARALLEL = [("starcoder2_7b", "prefill_32k"),
                     ("whisper_small", "prefill_32k")]
+TRAIN = [c for c in CELLS if c[1] == "train_4k"]
 FLOPS_LIMIT = 1.10          # the port's FLOPs per device over the reference's
 COLLECTIVE_LIMIT = 2.0      # its collective bytes, the MoE decode cells
 GATHERED_LIMIT = 1.10       # its collective bytes, the cells that gathered
 OUTPUT_LIMIT = 1.05         # a prefill's output bytes (logits and cache)
+MEMORY_LIMIT = 1.10         # a train cell's bytes a device
+CARD_GIB = 74.5             # an H100's 80 GB, in GiB
+LOSS_SHARE = 0.01           # the loss's share of a train cell's collectives
+WHISPER_PREFILL_LIMIT = 3.0
+# each prefill cell's bytes a device over the reference's before the
+# cache was written in place and rms_norm's temporaries were cut (the
+# port's grid with the outputs of collectives counted)
+PREFILL_MEMORY_BEFORE = {"starcoder2_7b": 1.96, "zamba2_2p7b": 1.12,
+                         "stablelm_12b": 1.34, "whisper_small": 4.21}
 
 REFERENCE = """
 import os, sys
@@ -100,11 +122,14 @@ def cells(tmp_path_factory):
     cells = [f"{a}:{s}" for a, s in CELLS]
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
-    procs = {name: subprocess.Popen(
+    # the port's cells in two processes, beside the reference's one
+    runs = [("ref", REFERENCE, cells), ("port", PORT, cells[0::2]),
+            ("port", PORT, cells[1::2])]
+    procs = {(name, i): subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(code), str(tmp / name)]
-        + cells, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        + part, env=env, cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-        for name, code in (("ref", REFERENCE), ("port", PORT))}
+        for i, (name, code, part) in enumerate(runs)}
     for name, p in procs.items():
         out, _ = p.communicate(timeout=900)
         assert p.returncode == 0, f"{name}: {out[-3000:]}"
@@ -169,12 +194,82 @@ def test_busiest_rank_counted(cells, cell):
     assert ratio <= FLOPS_LIMIT, (cell, ratio)
 
 
+def _memory_ratio(cells, cell) -> float:
+    ref, port = cells[cell]
+    return (port["memory"]["per_device_total_gib"]
+            / ref["memory"]["per_device_total_gib"])
+
+
+@pytest.mark.parametrize("cell", TRAIN, ids=lambda c: c[0])
+def test_train_memory_within_reference(cells, cell):
+    """A train step holds no more bytes a device than the reference's
+    (the loss no longer gathers the batch's f32 logits), and fits the card
+    where the reference's does."""
+    ratio = _memory_ratio(cells, cell)
+    assert ratio <= MEMORY_LIMIT, (cell, ratio)
+    ref, port = cells[cell]
+    if ref["memory"]["per_device_total_gib"] <= CARD_GIB:
+        assert port["memory"]["per_device_total_gib"] <= CARD_GIB, cell
+
+
+def _loss_lines():
+    """The source lines of the loss: ``cross_entropy`` and what it calls
+    under a mesh, and the MTP head's logits and loss."""
+    import inspect
+    from repro_torch.train import train_step as ts
+    lines = set()
+    for fn in (ts.cross_entropy, ts._cross_entropy_sharded,
+               ts._VocabParallelCE, ts._mtp_head_loss):
+        src, first = inspect.getsourcelines(fn)
+        lines.update(range(first, first + len(src)))
+    return {f"repro_torch/train/train_step.py:{n}" for n in lines}
+
+
+@pytest.mark.parametrize("cell", TRAIN, ids=lambda c: c[0])
+def test_loss_moves_rows_only(cells, cell):
+    """The loss's collectives carry (B_local, S) rows, not vocab-wide or
+    batch-wide logits: a sliver of the cell's collective bytes."""
+    _, port = cells[cell]
+    lines = _loss_lines()
+    share = sum(t["share"] for t in port["top_collectives"]
+                if t["source"] in lines)
+    assert share < LOSS_SHARE, (cell, share, [
+        t for t in port["top_collectives"] if t["source"] in lines][:5])
+
+
+@pytest.mark.parametrize("cell", PREFILL, ids=lambda c: c[0])
+def test_prefill_memory_not_above_before(cells, cell):
+    """A prefill holds its stacked cache once and one f32 temporary in
+    its norms: no more bytes a device than before that repair, and
+    whisper's within WHISPER_PREFILL_LIMIT of the reference's."""
+    ratio = _memory_ratio(cells, cell)
+    assert ratio <= PREFILL_MEMORY_BEFORE[cell[0]], (cell, ratio)
+    if cell[0] == "whisper_small":
+        assert ratio <= WHISPER_PREFILL_LIMIT, ratio
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_top_live_splits_the_peak(cells, cell):
+    """Each cell's ``top_live`` splits its peak of live bytes by source
+    line, pass and dtype: the shares sum to one, and each rank has its
+    own."""
+    _, port = cells[cell]
+    live = port["top_live"]
+    assert live and abs(sum(t["share"] for t in live) - 1) < 1e-9
+    assert all(set(t) == {"source", "pass", "dtype", "bytes", "share"}
+               for t in live)
+    assert all(r["top_live"] for r in port["ranks"].values())
+
+
 def _grid_table(ref_dir: Path, port_dir: Path, before=None) -> str:
     """A markdown table, an architecture a row and a shape a column: each
-    cell's FLOPs (F), collective bytes (C, beside the reference's in GB)
-    and output bytes (O) a device, the port's over the reference's
-    (``before -> now`` with an earlier port grid); ``SKIP`` where the
-    reference skips the cell, ``n/a`` where a port grid lacks it."""
+    cell's FLOPs (F), collective bytes (C, beside the reference's in GB),
+    output bytes (O) and memory (M, ``per_device_total_gib``, beside the
+    reference's in GiB and followed by the port's first ``top_live``
+    entry: source line, pass, dtype, GiB) a device, the port's over the
+    reference's (``before -> now`` with an earlier port grid); ``SKIP``
+    where the reference skips the cell, ``n/a`` where a port grid lacks
+    it."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.configs.registry import ARCHS
 
@@ -201,11 +296,21 @@ def _grid_table(ref_dir: Path, port_dir: Path, before=None) -> str:
             for tag, key, part in (
                     ("F", "flops_per_device", "roofline"),
                     ("C", "collective_bytes_per_device", "roofline"),
-                    ("O", "output_bytes", "memory")):
+                    ("O", "output_bytes", "memory"),
+                    ("M", "per_device_total_gib", "memory")):
                 want = ref[part][key]
                 got = " -> ".join(f"{p[part][key] / want:.2f}" for p in ports)
-                cell.append(f"{tag} {want / 1e9:.4g} GB {got}" if tag == "C"
-                            else f"{tag} {got}")
+                if tag == "C":
+                    cell.append(f"C {want / 1e9:.4g} GB {got}")
+                elif tag == "M":
+                    top = ports[-1]["top_live"][0]
+                    cell.append(
+                        f"M {want:.2f} GiB {got} "
+                        f"(`{top['source'].split('repro_torch/')[-1]}` "
+                        f"{top['pass'][0]} {top['dtype']} "
+                        f"{top['bytes'] / 2**30:.2f})")
+                else:
+                    cell.append(f"{tag} {got}")
             cols.append("; ".join(cell))
         rows.append(f"| {arch} | " + " | ".join(cols) + " |")
     return "\n".join(rows)

@@ -117,6 +117,12 @@ def test_simulated_scheme_serving_matches_reference_tokens(smr, backend):
     assert eng.pool.policy.scheme_name == smr
     assert _run(eng, prompts) == want
     pool = eng.pool
+    # an epoch scheme (EBR) frees only after every thread has announced a
+    # later epoch: give each engine slot one empty step before the flush,
+    # so what it frees does not hang on how the decode threads interleaved
+    for e in range(pool.n_engines):
+        pool.start_step(e)
+        pool.end_step(e)
     pool.policy.flush()
     assert pool.stats.freed > 0
     assert eng.kv_store.poisons == pool.stats.freed
