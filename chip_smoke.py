@@ -264,7 +264,11 @@ Phases (any failure raises and exits non-zero; none is caught):
               one train step; the card allocator's peak over each call
               (``max_memory_allocated`` less what was allocated before
               it) within 15% of the live-bytes peak for the same call on
-              the meta device.
+              the meta device; a prefill of the same cut at B=1,
+              S=32768 without a gradient (rms_norm in 4 row chunks, the
+              residual sums in place), its peak 1.00-1.05x the count;
+              and rms_norm at that size in chunks against one pass on
+              the card (largest difference, bit equality).
 
 After each group of phases a ``time: ... done at N s`` line gives the
 time since the card phase began.  The last two lines of standard output
@@ -4706,16 +4710,25 @@ def phase_dist(card: str, dry=None) -> int:
 #: full width and vocab cut to one pattern repeat (a local and a global
 #: layer), one bf16 train step, unsharded
 MEM_BATCH, MEM_SEQ = 1, 4096
+#: and a prefill of the same cut at a length whose norms run 4 row chunks
+#: a call (``models/layers.py::NORM_CHUNK_ROWS``), its peak held to the
+#: count within MEM_PREFILL_RATIO (the allocator rounds up, never down)
+MEM_PREFILL_BATCH, MEM_PREFILL_SEQ = 1, 32768
+MEM_PREFILL_RATIO = (1.0, 1.05)
 
 
 def phase_dryrun_memory(card: str) -> int:
     """``roofline/op_stats.py``'s live-bytes peak on the ``meta`` device
     (what the dry-run's ``temp_bytes`` counts) against the card's
     allocator for the same call: ``max_memory_allocated()`` less the bytes
-    allocated before it (parameters, moments, batch).  Two calls:
+    allocated before it (parameters, moments, batch).  Three calls:
     ``value_and_grad`` alone, whose peak the model and the loss make (the
-    f32 logits and their gradient, the kernels' VJPs), and the train step,
-    whose peak AdamW's f32 temporaries make.  Returns the flash launches."""
+    f32 logits and their gradient, the kernels' VJPs); the train step,
+    whose peak AdamW's f32 temporaries make; and the prefill step at
+    MEM_PREFILL_SEQ tokens, without a gradient (rms_norm a row chunk at a
+    time, the residual sums in place).  Then rms_norm at the prefill's
+    size in chunks against one pass on the card.  Returns the flash
+    launches."""
     from repro_torch.configs import gemma2_27b
     from repro_torch.configs.base import Group
     from repro_torch.models.model import abstract_params
@@ -4726,18 +4739,29 @@ def phase_dryrun_memory(card: str) -> int:
     toks = torch.randint(0, cfg.vocab, (MEM_BATCH, MEM_SEQ),
                          generator=torch.Generator().manual_seed(SEED))
 
+    ptoks = torch.randint(0, cfg.vocab, (MEM_PREFILL_BATCH, MEM_PREFILL_SEQ),
+                          generator=torch.Generator().manual_seed(SEED + 1))
+
     def batch(dev):
         t = toks.to(dev)
-        return {"tokens": t, "targets": torch.roll(t, -1, 1)}
+        return {"tokens": t, "targets": torch.roll(t, -1, 1),
+                "prefill": ptoks.to(dev)}
+
+    prefill = make_prefill_step(cfg)
+
+    def prefill_call(p, o, b):
+        with torch.no_grad():
+            return prefill(p, b["prefill"])
 
     calls = {"value_and_grad": lambda p, o, b: value_and_grad(p, b, cfg),
-             "train step": make_train_step(cfg)}
+             "train step": make_train_step(cfg), "prefill": prefill_call}
     params = abstract_params(cfg)
     opt = adamw_init(params)
     counts = {}
+    mb = batch("meta")          # made before the count, as on the card
     for name, fn in calls.items():
         with OpStats() as st:
-            fn(params, opt, batch("meta"))
+            fn(params, opt, mb)
         counts[name] = st
     del params, opt
     params = _model(cfg, f"cut: 1 of {full.groups[0].repeats} pattern "
@@ -4753,8 +4777,11 @@ def phase_dryrun_memory(card: str) -> int:
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         out = fn(params, opt, b)
-        loss = float(out[0][0] if name == "value_and_grad"
-                     else out[2]["loss"])
+        if name == "prefill":      # the last position's logits, finite
+            loss = float(out[0].float().abs().amax())
+        else:
+            loss = float(out[0][0] if name == "value_and_grad"
+                         else out[2]["loss"])
         torch.cuda.synchronize()
         used = torch.cuda.max_memory_allocated() - before
         if name == "train step":
@@ -4762,27 +4789,71 @@ def phase_dryrun_memory(card: str) -> int:
         del out
         st = counts[name]
         ratio = used / st.peak_bytes
-        ok = abs(ratio - 1) <= MEM_TOL and math.isfinite(loss)
+        if name == "prefill":
+            lo, hi = MEM_PREFILL_RATIO
+            ok, tol = lo <= ratio <= hi, f"{lo:g}-{hi:g}x"
+            B, S = MEM_PREFILL_BATCH, MEM_PREFILL_SEQ
+        else:
+            ok, tol = abs(ratio - 1) <= MEM_TOL, f"tol {MEM_TOL:g}"
+            B, S = MEM_BATCH, MEM_SEQ
+        ok = ok and math.isfinite(loss)
         top = "; ".join(f"{t['source']} {t['pass']} {t['dtype']} "
                         f"{t['bytes'] / 2**30:.2f} GiB ({t['share']:.2f})"
                         for t in st.top_live(3))
-        log(f"dryrun memory {cfg.name} 2 layers {name} bf16 B={MEM_BATCH} "
-            f"S={MEM_SEQ} V={cfg.vocab}: the card's allocator peak over the "
+        log(f"dryrun memory {cfg.name} 2 layers {name} bf16 B={B} "
+            f"S={S} V={cfg.vocab}: the card's allocator peak over the "
             f"call {used} bytes ({used / 2**30:.2f} GiB) vs OpStats' count "
             f"on meta {st.peak_bytes} bytes ({st.peak_bytes / 2**30:.2f} "
-            f"GiB): ratio {ratio:.4f} (tol {MEM_TOL:g}); top_live {top}; "
-            f"loss {loss:.4f}; {card}: {ok}")
+            f"GiB): ratio {ratio:.4f} ({tol}); top_live {top}; "
+            f"{'max |logit|' if name == 'prefill' else 'loss'} {loss:.4f}; "
+            f"{card}: {ok}")
         if not ok:
             bad.append(name)
     flash = build.launch_counts.get("flash_attention", 0)
-    log(f"dryrun memory: flash launches {flash}; "
-        f"{time.monotonic() - t0:.1f} s")
     del params, opt, b
     free_cuda()
+    norm_ok = _norm_chunks_on_card(cfg, card)
+    log(f"dryrun memory: flash launches {flash}; "
+        f"{time.monotonic() - t0:.1f} s")
+    if not norm_ok:
+        bad.append("rms_norm chunks")
     if bad or flash == 0:
         raise AssertionError(f"dryrun memory: the count and the card differ "
                              f"({bad}) or no flash launch ({flash})")
     return flash
+
+
+def _norm_chunks_on_card(cfg, card: str) -> bool:
+    """rms_norm without a gradient on the card in bf16 at the prefill
+    call's size, in row chunks (``NORM_CHUNK_ROWS``) against one pass (the
+    same function with the chunk above the row count): the largest
+    difference, and whether the two are bit-equal (the card's reduction
+    over a row may depend on how many rows a launch takes).  Fails beyond
+    the bf16 tolerance of the port's tests (2e-2)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    shape = (MEM_PREFILL_BATCH, MEM_PREFILL_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+    s = (0.1 * torch.randn(cfg.d_model, generator=g, device=DEV)).to(
+        torch.bfloat16)
+    rows = x.numel() // cfg.d_model
+    chunk = L.NORM_CHUNK_ROWS
+    with torch.no_grad():
+        chunked = L.rms_norm(x, s, cfg.norm_eps)
+        try:
+            L.NORM_CHUNK_ROWS = rows + 1
+            one = L.rms_norm(x, s, cfg.norm_eps)
+        finally:
+            L.NORM_CHUNK_ROWS = chunk
+    torch.cuda.synchronize()
+    err = float((chunked.float() - one.float()).abs().max())
+    equal = bool(torch.equal(chunked, one))
+    ok = err <= 2e-2 and bool(torch.isfinite(chunked.float()).all())
+    log(f"dryrun memory rms_norm bf16 {tuple(shape)}: {-(-rows // chunk)} "
+        f"chunks of {chunk} rows vs one pass: max abs diff {err:.6g}, "
+        f"bit-equal {equal}; {card}: {ok}")
+    del x, chunked, one
+    free_cuda()
+    return ok
 
 
 # ----------------------------------------------------------------------------

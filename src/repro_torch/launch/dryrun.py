@@ -131,7 +131,9 @@ def _tree(x):
 
 def run_step(cfg, shape, mesh):
     """One cell's step on ``mesh`` under :class:`OpStats`; returns
-    (stats, argument bytes, output bytes, alias bytes)."""
+    (stats, argument bytes, output bytes, alias bytes, the bytes of the
+    outputs but the aliased ones that the step allocated: counted among
+    its live bytes too)."""
     p_dt = sh.tree_distribute(mesh, abstract_params(cfg),
                               params_logical_axes(cfg))
     specs = input_specs(cfg, shape)
@@ -152,6 +154,7 @@ def run_step(cfg, shape, mesh):
             p_dt, opt, metrics = make_train_step(cfg)(p_dt, opt, batch)
         alias = _local_bytes(p_dt) + _local_bytes(_tree(opt))
         out_bytes = alias + _local_bytes(metrics)
+        out = metrics
     elif shape.kind == "prefill":
         arg_bytes = _local_bytes(args)
         with st:
@@ -166,7 +169,11 @@ def run_step(cfg, shape, mesh):
             tok, cache = make_serve_step(cfg)(p_dt, cache, batch["tokens"])
         alias = _local_bytes(cache)
         out_bytes = alias + _local_bytes(tok)
-    return st, arg_bytes, out_bytes, alias
+        out = tok
+    made = st.made_bytes(t.to_local() if sh.is_dtensor(t) else t
+                         for t in tree_leaves(_tree(out))
+                         if isinstance(t, torch.Tensor))
+    return st, arg_bytes, out_bytes, alias, made
 
 
 def last_model_rank(multi_pod: bool = False) -> int:
@@ -239,8 +246,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                       "collective_bytes": st.coll.wire_bytes,
                       "argument_bytes": arg_b, "output_bytes": out_b,
                       "temp_bytes": st.peak_bytes, "alias_bytes": alias_b,
-                      "top_live": st.top_live()}
-                  for r, (st, arg_b, out_b, alias_b) in runs.items()}
+                      "output_made_bytes": made_b, "top_live": st.top_live()}
+                  for r, (st, arg_b, out_b, alias_b, made_b)
+                  in runs.items()}
         most = {k: max(c[k] for c in counts.values()) for k in counts[0]
                 if k != "top_live"}
         by_flops = runs[max(ranks, key=lambda r: counts[r]["flops"])][0]
@@ -253,8 +261,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                            hbm_bytes_raw=most["hbm_bytes_raw"])
         mem = {k: most[k] for k in ("argument_bytes", "output_bytes",
                                     "temp_bytes")}
-        mem.update(code_bytes=0, alias_bytes=most["alias_bytes"])
-        total = sum(v for v in mem.values() if v) - mem["alias_bytes"]
+        mem.update(code_bytes=0, alias_bytes=most["alias_bytes"],
+                   output_made_bytes=most["output_made_bytes"])
+        # the reference's sum (arguments, outputs, temporaries; its alias
+        # bytes added and taken off again), less the outputs the step
+        # made: XLA's temporaries leave the outputs' buffers out, the live
+        # bytes count them where they are live
+        total = (mem["argument_bytes"] + mem["output_bytes"]
+                 + mem["temp_bytes"] - mem["output_made_bytes"])
         mem["per_device_total_gib"] = round(total / 2**30, 3)
         meta.update({"status": "ok", "step_s": round(time.time() - t0, 1),
                      "memory": mem, "roofline": rl.as_dict(),

@@ -98,17 +98,82 @@ def stack_specs(tree, repeats: int):
 # ----------------------------------------------------------------------------
 
 
+# Rows a no-gradient rms_norm takes at a time: each of its two f32
+# temporaries is one chunk's (256 MiB at d_model 8192), not the whole
+# input's (a prefill_32k rank's 65536 rows: 2 GiB each at d_model 8192).
+# 8192 rows still give a launch 8M+ elements to fill the card; serving's
+# decode steps and 32-token chunks stay below it and keep their one pass.
+NORM_CHUNK_ROWS = 8192
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim, in
+    f32, cast back to ``x.dtype``.  Where no gradient is taken the same
+    products run in the same order a row chunk at a time
+    (:data:`NORM_CHUNK_ROWS`) into one output, so only one chunk's f32
+    temporaries are live; a DTensor whose last dim is whole is normed on
+    each rank's local shard (:func:`_norm_local`).  A non-contiguous x
+    that its rows cannot view is copied (in x.dtype) before the chunks."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        x32 = x.float()
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+        return out.to(x.dtype)
+    return _norm_local(x, scale, eps)
+
+
+def _norm_local(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """The no-gradient norm: under a mesh on each rank's local rows (no
+    collective: the last dim is whole on every rank), the output in x's
+    own placements and global shape (uneven shards too); where the last
+    dim is sharded or x is a ``Partial`` sum, DTensor's own ops on the
+    whole."""
+    from repro_torch.parallel.sharding import is_dtensor
+    if not is_dtensor(x):
+        return _norm_rows(x, scale, eps)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, where = x.device_mesh, tuple(x.placements)
+    if not all(isinstance(p, Replicate) or (isinstance(p, Shard)
+                                            and p.dim % x.dim() != x.dim() - 1)
+               for p in where):
+        return _norm_pass(x, 1.0 + scale.float(), eps)
+    if is_dtensor(scale):
+        scale = scale.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    out = _norm_rows(x.to_local(), scale, eps).contiguous()
+    stride = tuple(math.prod(x.shape[d + 1:]) for d in range(x.dim()))
+    return DTensor.from_local(out, mesh, where, run_check=False,
+                              shape=x.shape, stride=stride)
+
+
+def _norm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """One pass when x has at most :data:`NORM_CHUNK_ROWS` rows, else a
+    chunk of rows at a time into one output of ``x.dtype``."""
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    s = 1.0 + scale.float()
+    if rows <= NORM_CHUNK_ROWS:
+        return _norm_pass(x, s, eps)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    xs, outs = x.reshape(rows, d), out.view(rows, d)
+    for i in range(0, rows, NORM_CHUNK_ROWS):
+        _norm_pass(xs[i:i + NORM_CHUNK_ROWS], s, eps,
+                   outs[i:i + NORM_CHUNK_ROWS])
+    return out
+
+
+def _norm_pass(x: torch.Tensor, s: torch.Tensor, eps: float,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The norm of rows ``x`` scaled by ``s`` (``1 + scale`` in f32), into
+    ``out`` when given: the grad path's products in its order, in place
+    on the f32 copy (one f32 temporary of x's size, not two)."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    if x32 is x or (torch.is_grad_enabled()
-                    and (x.requires_grad or scale.requires_grad)):
-        out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
-    else:
-        # no gradient taken: the same products in the same order, in place
-        # on the f32 copy, so one f32 tensor of x's size is live, not two
-        out = x32.mul_(torch.rsqrt(var + eps)).mul_(1.0 + scale.float())
-    return out.to(x.dtype)
+    r = torch.rsqrt(var + eps)
+    if x32 is x:                  # f32: x is the caller's, left as it is
+        y = torch.mul(x, r) if out is None else torch.mul(x, r, out=out)
+        return y.mul_(s)
+    x32.mul_(r).mul_(s)
+    return x32.to(x.dtype) if out is None else out.copy_(x32)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

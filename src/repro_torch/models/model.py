@@ -61,8 +61,8 @@ from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.ssm import (_st_write, apply_mamba2, apply_rwkv6,
                                     mamba2_dims, mamba2_specs, rwkv6_dims,
                                     rwkv6_specs)
-from repro_torch.parallel.sharding import (constrain, is_dtensor,
-                                          under_mesh, unshard)
+from repro_torch.parallel.sharding import (add_in_place, constrain,
+                                          is_dtensor, under_mesh, unshard)
 
 Spec = L.Spec
 
@@ -355,7 +355,14 @@ def _residual(x, o):
     once, so the next sublayer's products run column-parallel on each
     rank's own weights (left alone, the sharding propagation defers the sum
     and gathers whole weights instead, redoing each product on every
-    ``model`` rank)."""
+    ``model`` rank).  Where no gradient is taken the sum is written into
+    x's buffer, ``o`` all-reduced in place first (``add_in_place``): a
+    forward holds the stream once, as the reference's program updates it,
+    whatever references to it the callers still keep."""
+    if not (torch.is_grad_enabled() and (x.requires_grad or o.requires_grad)):
+        s = add_in_place(constrain(x, _STREAM), o)
+        if s is not None:
+            return s
     return constrain(x + o, _STREAM)
 
 
@@ -386,26 +393,31 @@ def _at_use(tree, mode: str, key: str = ""):
 def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
                  kv_source, shared_params, layer_idx=None, impl=None):
     """One pattern-position layer.  Returns (x, new_lcache, aux), the MoE
-    losses added to ``aux``."""
+    losses added to ``aux``.  A sublayer's normed input goes straight into
+    it and its output is dropped after the residual sum: no name here
+    keeps either past its use (without a gradient nothing else does)."""
     new_cache: Dict[str, Any] = {}
 
     if spec.mixer == "attn":
-        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        o, c = apply_attn(lp["attn"], h, cfg=cfg, kind=spec.attn_kind,
+        o, c = apply_attn(lp["attn"], L.rms_norm(x, lp["norm1"], cfg.norm_eps),
+                          cfg=cfg, kind=spec.attn_kind,
                           mode=mode, cache=lcache if lcache else None,
                           pos=pos, kv_source=kv_source, causal=spec.causal,
                           layer_idx=layer_idx, impl=impl)
         if cfg.post_norms:
             o = _post_norm(o, lp["post_norm1"], cfg)
         x = _residual(x, o)
+        del o
         if c:
             new_cache.update(c)
     elif spec.mixer == "mamba2":
-        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        o, c = apply_mamba2(lp["mamba"], h, cfg=cfg, mode=mode,
+        o, c = apply_mamba2(lp["mamba"],
+                            L.rms_norm(x, lp["norm1"], cfg.norm_eps),
+                            cfg=cfg, mode=mode,
                             cache=lcache if lcache else None,
                             layer_idx=layer_idx, impl=impl)
         x = _residual(x, o)
+        del o
         if c:
             new_cache.update(c)
     elif spec.mixer == "rwkv6":
@@ -426,27 +438,29 @@ def _apply_layer(lp, spec: LayerSpec, x, aux, *, cfg, mode, lcache, pos,
                 new_cache["cm_shift"] = cm_shift
 
     if spec.shared_attn:
-        h = L.rms_norm(x, shared_params["norm"], cfg.norm_eps)
         scache = None
         if lcache and "shared_k" in lcache:
             scache = {"k": lcache["shared_k"], "v": lcache["shared_v"]}
-        o, c = apply_attn(shared_params["attn"], h, cfg=cfg, kind="full",
+        o, c = apply_attn(shared_params["attn"],
+                          L.rms_norm(x, shared_params["norm"], cfg.norm_eps),
+                          cfg=cfg, kind="full",
                           mode=mode, cache=scache, pos=pos,
                           layer_idx=layer_idx, impl=impl)
         x = _residual(x, o)
+        del o
         if c:
             new_cache["shared_k"] = c["k"]
             new_cache["shared_v"] = c["v"]
 
     if spec.mlp == "dense":
-        h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        o = L.mlp_apply(lp["mlp"], h, cfg.act)
+        o = L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["norm2"], cfg.norm_eps),
+                        cfg.act)
         if cfg.post_norms:
             o = _post_norm(o, lp["post_norm2"], cfg)
         x = _residual(x, o)
     elif spec.mlp == "moe":
-        h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        o, a = apply_moe(lp["moe"], h, cfg=cfg)
+        o, a = apply_moe(lp["moe"], L.rms_norm(x, lp["norm2"], cfg.norm_eps),
+                         cfg=cfg)
         aux = {k: aux[k] + a[k] for k in aux}
         x = _residual(x, o)
 

@@ -186,12 +186,17 @@ class _AllToAll(torch.autograd.Function):
 
 
 def _all_to_all(x, split: int, concat: int, group) -> torch.Tensor:
+    """The pieces stacked on a new leading dim for the exchange and the
+    received ones laid along ``concat``, as ``torch.stack`` of the chunks
+    and ``torch.cat`` would, by views where the dim is the leading one (no
+    copy of the tokens there)."""
     import torch.distributed._functional_collectives as funcol
     n = group.size()
-    send = torch.stack(x.chunk(n, dim=split)).contiguous()
+    send = x.unflatten(split, (n, -1)).movedim(split, 0).contiguous()
     got = funcol.all_to_all_single(send, None, None, group)
+    del send
     got = funcol.wait_tensor(got)
-    return torch.cat(got.unbind(0), dim=concat)
+    return got.movedim(0, concat).flatten(concat, concat + 1)
 
 
 class _Mean(torch.autograd.Function):
@@ -250,11 +255,15 @@ def apply_moe_ep(p, x, *, cfg: ArchConfig, mesh):
         top_i, cw, ci, aux = route({"router": router}, xt, cfg)
         E, C = ci.shape
         xe = xt[ci.reshape(-1)].reshape(E, C, D)
-        # dispatch: (E, C, D) -> (E/tp, C*tp, D) rows of local experts
+        # dispatch: (E, C, D) -> (E/tp, C*tp, D) rows of local experts;
+        # each stage's input dropped once the next is made
         xr = _AllToAll.apply(xe, 0, 1, model_group)
+        del xe
         yr = _expert_ffn({"wi_gate": wig, "wi_up": wiu, "wo": wo}, xr, cfg)
+        del xr
         # combine: route outputs back to the token-owner shard
         ye = _AllToAll.apply(yr, 1, 0, model_group)        # (E, C, D)
+        del yr
         out = _combine(ye, cw, ci, top_i, T, xb.dtype).reshape(Bl, Sl, D)
         if m.n_shared:
             out = out + mlp_apply(dict(zip(names, sh)), xb, cfg.act)

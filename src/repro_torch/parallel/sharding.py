@@ -442,6 +442,40 @@ def all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
     return t
 
 
+def add_in_place(x: torch.Tensor, o: torch.Tensor):
+    """``x += o`` in x's own buffer, where no gradient is taken; None
+    where the layouts do not allow it (the caller adds).  Under a mesh
+    ``o`` may be a ``Partial`` sum over mesh axes where ``x`` is whole (a
+    row-parallel product's output): it is all-reduced in place on its
+    local tensor first, the one all-reduce of the stream's size that
+    DTensor's ``x + o`` issues on a new tensor."""
+    if x.shape != o.shape or x.dtype != o.dtype:
+        return None
+    if not is_dtensor(x) and not is_dtensor(o):
+        return x.add_(o)
+    if not (is_dtensor(x) and is_dtensor(o)) or \
+            x.device_mesh != o.device_mesh:
+        return None
+    from torch.distributed.tensor import Partial
+    reduce = []
+    for m, (px, po) in enumerate(zip(x.placements, o.placements)):
+        if po == px:
+            continue
+        if not (isinstance(po, Partial) and po.reduce_op == "sum"
+                and px.is_replicate()):
+            return None
+        reduce.append(m)
+    xl, ol = x.to_local(), o.to_local()
+    if xl.shape != ol.shape:
+        return None
+    f = torch.ops._c10d_functional
+    for m in reduce:
+        group = x.device_mesh.get_group(m).group_name
+        ol = f.wait_tensor(f.all_reduce_(ol, "sum", group))
+    xl.add_(ol)
+    return x
+
+
 def fsdp_sharded(w) -> bool:
     """Whether DTensor ``w`` is still sharded over an FSDP axis (decode
     leaves a layer's matrices so: :func:`stationary_matmul`)."""

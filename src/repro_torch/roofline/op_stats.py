@@ -150,6 +150,27 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
 
+def _storage_key(t: torch.Tensor) -> Optional[int]:
+    """The identity of ``t``'s storage (shared by its views), None where
+    it has none."""
+    try:
+        return t.untyped_storage()._cdata
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
+@dataclass(eq=False)
+class _Alloc:
+    """The bytes one counted storage holds, under ``key`` (source, pass,
+    dtype), live while any of its holders (tensors on it, or standing for
+    it) is: ``holders`` counts them by the storage they lie on."""
+    n: int
+    key: Tuple
+    collective: bool
+    vjp: Optional["_VJPPeak"]
+    holders: Dict[Optional[int], int] = field(default_factory=dict)
+
+
 def _tensors(x):
     if isinstance(x, torch.Tensor):
         yield x
@@ -181,6 +202,8 @@ class OpStats(TorchDispatchMode):
     # count live bytes alone, under this source (:meth:`plain_vjp`)
     _live_only: Optional[Tuple[str, str]] = None
     _vjp: Optional["_VJPPeak"] = None   # the plain VJP being measured
+    # the counted storages' allocations, by storage (:func:`_storage_key`)
+    _allocs: Dict[int, "_Alloc"] = field(default_factory=dict)
 
     def __post_init__(self):
         super().__init__()
@@ -208,9 +231,16 @@ class OpStats(TorchDispatchMode):
     def _track(self, t: torch.Tensor, source: Tuple[str, str],
                collective: bool = False) -> None:
         """Count ``t`` live until it is freed, under (``source``, its
-        dtype); ``collective``: ``t`` is a collective's output."""
+        dtype); ``collective``: ``t`` is a collective's output.  A tensor
+        on the storage of one already counted (``_unsafe_view``'s output
+        on ``mm``'s) adds no bytes: it holds that storage live too
+        (:meth:`_hold`)."""
         n = _nbytes(t)
         if not n:
+            return
+        sk = _storage_key(t)
+        if sk in self._allocs:
+            self._hold(t, self._allocs[sk], sk)
             return
         key = (*source, str(t.dtype).replace("torch.", ""))
         self.live_bytes += n
@@ -221,7 +251,40 @@ class OpStats(TorchDispatchMode):
             self._at_peak = True
         if self._vjp is not None:
             self._vjp.add(n, key[2])
-        weakref.finalize(t, self._release, n, key, collective, self._vjp)
+        self._hold(t, _Alloc(n, key, collective, self._vjp), sk)
+
+    def _hold(self, t: torch.Tensor, alloc: "_Alloc",
+              sk: Optional[int]) -> None:
+        """``t`` holds ``alloc``'s bytes live (on storage ``sk``) until it
+        is freed; the bytes are released when its last holder is."""
+        alloc.holders[sk] = alloc.holders.get(sk, 0) + 1
+        if sk is not None:
+            self._allocs[sk] = alloc
+        weakref.finalize(t, self._drop, alloc, sk)
+
+    def _alias(self, out: torch.Tensor) -> bool:
+        """Whether ``out`` lies on the storage of a counted tensor (a
+        view, an in-place op's result), and then holds it."""
+        sk = _storage_key(out)
+        if sk not in self._allocs:
+            return False
+        self._hold(out, self._allocs[sk], sk)
+        return True
+
+    def _drop(self, alloc: "_Alloc", sk: Optional[int]) -> None:
+        """A holder on storage ``sk`` is freed.  When it was that
+        storage's last, the storage is freed and its key goes, even where
+        the bytes live on through a holder on another storage (a
+        collective's wrapper): a new storage at the same address is not
+        this one."""
+        alloc.holders[sk] -= 1
+        if alloc.holders[sk]:
+            return
+        del alloc.holders[sk]
+        if sk is not None and self._allocs.get(sk) is alloc:
+            del self._allocs[sk]
+        if not alloc.holders:
+            self._release(alloc.n, alloc.key, alloc.collective, alloc.vjp)
 
     def _release(self, n: int, key: Tuple, collective: bool,
                  vjp: Optional["_VJPPeak"]) -> None:
@@ -231,6 +294,12 @@ class OpStats(TorchDispatchMode):
         self.live_by_source[key] -= n
         if vjp is not None:
             vjp.add(-n, key[2])
+
+    def made_bytes(self, tensors) -> int:
+        """The bytes of those of ``tensors`` (a step's outputs) that lie
+        on storages the step allocated: among its live bytes already."""
+        return sum(_nbytes(t) for t in tensors
+                   if _storage_key(t) in self._allocs)
 
     @property
     def peak_collective_bytes(self) -> int:
@@ -338,9 +407,12 @@ class OpStats(TorchDispatchMode):
             # no work of any rank
             return out
         if self._live_only is not None:
-            if not any(r.alias_info is not None
-                       for r in func._schema.returns):
-                for t in _tensors(out):
+            views = any(r.alias_info is not None
+                        for r in func._schema.returns)
+            for t in _tensors(out):
+                if views:
+                    self._alias(t)
+                else:
                     self._track(t, self._live_only)
             return out
         self.n_ops += 1
@@ -375,7 +447,15 @@ class OpStats(TorchDispatchMode):
                                 collective_source())
             return out
         if ns in ("_c10d_functional", "c10d"):
-            return out                      # wait_tensor, recv, barrier
+            # wait_tensor, recv, barrier; and the wrapper a collective's
+            # output is handed back in (``_wrap_tensor_autograd``: on
+            # meta a new tensor, on the card the same buffer), which holds
+            # that output's bytes in its stead
+            held = self._allocs.get(_storage_key(ins[0])) if ins else None
+            for o in outs:
+                if not self._alias(o) and held is not None:
+                    self._hold(o, held, _storage_key(o))
+            return out
         flop_fn = self._flop_registry.get(func._overloadpacket)
         if flop_fn is not None:
             f = flop_fn(*args, **kwargs, out_val=out)
@@ -387,8 +467,11 @@ class OpStats(TorchDispatchMode):
             for t in outs:
                 self._track(t, source)
             return out
-        if views and name not in ("copy_", "fill_", "zero_"):
-            return out                      # a view or in-place: no traffic
+        if views:
+            for t in outs:              # a view holds its base's storage
+                self._alias(t)
+            if name not in ("copy_", "fill_", "zero_"):
+                return out                  # a view or in-place: no traffic
         nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
         self.hbm_bytes_raw += nbytes
         if name not in _MOVEMENT:

@@ -78,13 +78,19 @@ def test_top_collectives_name_port_lines(rwkv6_decode):
         assert t["pass"] == "forward", t        # decode: no backward
 
 
-def test_top_collectives_shares_exact():
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+def test_top_collectives_shares_exact(grad):
     """The per-collective tally on a loop-free chain: wire bytes by (kind,
     payload shape and dtype, group, source line, pass), a repeated
     collective summed, its shares exact; a pin's collective named by its
     caller's line (``models/model.py``'s residual sum, not
-    ``parallel/sharding.py``), one outside the port "unknown"."""
-    code = """
+    ``parallel/sharding.py``), one outside the port "unknown".  The
+    residual's all-reduce is issued in place where no gradient is taken
+    (``add_in_place(``) and by DTensor's ``x + o`` on the gradient path
+    every train cell runs (``constrain(x + o``): the same bytes and group
+    at either line."""
+    mark = "constrain(x + o" if grad else "add_in_place("
+    code = f"GRAD, MARK = {grad!r}, {mark!r}" + """
 import inspect, json, torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.launch.dryrun import fake_world
@@ -93,15 +99,16 @@ from repro_torch.models import model
 from repro_torch.parallel import sharding as sh
 from repro_torch.roofline.op_stats import OpStats
 lines, first = inspect.getsourcelines(model._residual)
-at = first + next(i for i, ln in enumerate(lines) if "return constrain" in ln)
+at = first + next(i for i, ln in enumerate(lines) if MARK in ln)
 with fake_world(4):
     mesh = make_host_mesh((4,), ("model",), device_type="cpu")
     sh.set_mesh(mesh)
-    def dt(shape, pl):
-        return DTensor.from_local(torch.empty(shape, device="meta"), mesh,
-                                  [pl], run_check=False)
-    x, o, a = dt((2, 8, 16), Replicate()), dt((2, 8, 16), Partial()), \
-        dt((8, 32), Shard(0))
+    def dt(shape, pl, grad=False):
+        return DTensor.from_local(torch.empty(shape, device="meta",
+                                              requires_grad=grad),
+                                  mesh, [pl], run_check=False)
+    x, o, a = dt((2, 8, 16), Replicate(), GRAD), \
+        dt((2, 8, 16), Partial(), GRAD), dt((8, 32), Shard(0))
     with OpStats() as st:
         model._residual(x, o)
         a.redistribute(mesh, [Replicate()])
@@ -145,7 +152,7 @@ shape = dataclasses.replace(SHAPES["train_4k"], seq_len=16, global_batch=4)
 with dryrun.fake_world(8), dryrun._alltoall_kept():
     mesh = make_host_mesh((2, 4), device_type="cpu")
     sh.set_mesh(mesh)
-    st, arg_b, out_b, alias_b = dryrun.run_step(cfg, shape, mesh)
+    st, arg_b, out_b, alias_b, _ = dryrun.run_step(cfg, shape, mesh)
     sh.set_mesh(None)
     params = dryrun._local_bytes(sh.tree_distribute(
         mesh, dryrun.abstract_params(cfg), dryrun.params_logical_axes(cfg)))
@@ -297,3 +304,113 @@ with fake_world(4), _alltoall_kept():
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == \
         "[('all-to-all', 1024.0, 4)]", r.stdout
+
+
+# ----------------------------------------------------------------------------
+# live bytes by storage: what the card's allocator holds
+# ----------------------------------------------------------------------------
+
+
+def test_product_output_counted_once():
+    """``x @ w`` of a 3-D x is ``mm`` and ``_unsafe_view`` of its output:
+    one buffer, counted once (it was counted twice for a moment, the peak
+    of a prefill's row-parallel products)."""
+    with OpStats() as st:
+        a = torch.empty(4, 128, 64, device="meta", dtype=torch.bfloat16)
+        w = torch.empty(64, 32, device="meta", dtype=torch.bfloat16)
+        y = a @ w
+    assert st.peak_bytes == (4 * 128 * 64 + 64 * 32 + 4 * 128 * 32) * 2
+    del a, w
+    assert st.live_bytes == y.numel() * 2
+
+
+def test_view_holds_its_base():
+    """A view outliving its base holds the base's bytes live (a prefill's
+    last position sliced from the stream), released with the view."""
+    with OpStats() as st:
+        y = torch.empty(2, 1024, 64, device="meta")
+        v = y[:, -1:]
+        del y
+        assert st.live_bytes == 2 * 1024 * 64 * 4
+        del v
+        assert st.live_bytes == 0
+
+
+def test_collective_output_live_while_held():
+    """A collective's output is live while the DTensor that holds it is:
+    it reaches that DTensor through ``_wrap_tensor_autograd`` (a new
+    tensor on meta, the same buffer on the card), which held it
+    uncounted."""
+    code = """
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.roofline.op_stats import OpStats
+with fake_world(4):
+    mesh = make_host_mesh((4,), ("model",), device_type="cpu")
+    p = DTensor.from_local(torch.empty(256, 64, device="meta"), mesh,
+                           [Partial()], run_check=False)
+    with OpStats() as st:
+        r = p.redistribute(mesh, [Replicate()])
+        held = st.live_bytes
+        del r
+    print(held, st.live_bytes, st.peak_bytes)
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    held, after, peak = map(int, r.stdout.split()[-3:])
+    assert (held, after, peak) == (256 * 64 * 4, 0, 256 * 64 * 4)
+
+
+def test_freed_storage_not_taken_for_a_live_one():
+    """The storage of a collective's output is freed with that output
+    while the wrapper holding its bytes lives on: its key goes with it, so
+    a tensor made after on a new storage at the same address is counted in
+    full (the key was left behind, and such a tensor taken for an alias of
+    the collective: 0 bytes, the collective's kept live as long)."""
+    code = """
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.roofline.op_stats import OpStats, _storage_key
+with fake_world(4):
+    mesh = make_host_mesh((4,), ("model",), device_type="cpu")
+    p = DTensor.from_local(torch.empty(256, 64, device="meta"), mesh,
+                           [Partial()], run_check=False)
+    base = torch.empty(256, 64, device="meta")
+    with OpStats() as st:
+        rs = [p.redistribute(mesh, [Replicate()]) for _ in range(8)]
+        held = st.live_bytes
+        keys = set(st._allocs) == {_storage_key(r.to_local()) for r in rs}
+        made = [base + i for i in range(64)]
+        live = st.live_bytes
+        del rs
+        after = st.live_bytes
+        del made
+    print(keys, held, live, after, st.live_bytes)
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    keys, *counts = r.stdout.split()[-5:]
+    n = 256 * 64 * 4
+    assert keys == "True"           # no key of a freed storage is left
+    assert list(map(int, counts)) == [8 * n, 72 * n, 64 * n, 0]
+
+
+def test_outputs_made_counted_once(rwkv6_decode):
+    """A cell's bytes a device are the reference's sum (arguments, outputs,
+    temporaries) with the outputs the step made taken once: they are among
+    its live bytes already, where XLA's temporaries leave the outputs'
+    buffers out.  A decode step's cache, written in place, is not made."""
+    _, d = rwkv6_decode
+    m = d["memory"]
+    assert 0 < m["output_made_bytes"] <= m["output_bytes"] - m["alias_bytes"]
+    total = (m["argument_bytes"] + m["output_bytes"] + m["temp_bytes"]
+             - m["output_made_bytes"])
+    assert m["per_device_total_gib"] == round(total / 2**30, 3)
