@@ -89,7 +89,8 @@ Phases (any failure raises and exits non-zero; none is caught):
               it, a process of its own beside a-e.  (g, after the train phase's tiny trainer: its
               checkpoint restored by a fresh Trainer and served, the tokens
               of the parameters in memory.)
-   smr serve -- the same traffic at 4 new tokens under every safe scheme
+   smr serve -- the traffic's 4 prompts that share a prefix at 4 new
+              tokens under every safe scheme
               of the SMR registry (SimulatedSMRPolicy, ``gen`` backend;
               the heavy schemes, HazardEraPOP, HP, HE, HPAsym and DEBRA+,
               on ``vec`` and 2 prompts sharing a prefix, HP and HPAsym
@@ -211,7 +212,7 @@ Phases (any failure raises and exits non-zero; none is caught):
               card over gloo, the kernels built before by this process.
               Gloo's all-gather and send / recv on CUDA tensors are staged
               through host memory (``parallel/collectives.py``) and
-              counted.  olmoe-1b-7b at full width cut to 2 layers on
+              counted.  olmoe-1b-7b at full width cut to 1 layer on
               (data=2, model=4), expert parallel: loss_fn and its grads in
               f32 and bf16 against the unsharded run (rank 0), no token
               dropped and the aux losses off, the unsharded run's routing
@@ -231,24 +232,26 @@ Phases (any failure raises and exits non-zero; none is caught):
               heads), each with a prefill's logits and cache;
               decode steps of starcoder2 (a cache sequence over model),
               deepseek (MLA's latent attention), rwkv6 at batch 1 on
-              (4, 2) and zamba2 (stationary products).  A sharded
+              (4, 2) and zamba2 (stationary products) at batch 4 and at
+              batch 1 (Mamba2 by heads, long_500k's case).  A sharded
               checkpoint: zamba2-smoke trained 2 steps on (2, 4), saved,
               restored onto (4, 2) with restore(shardings=), the third step
               against the uninterrupted run's (loss 1e-4, parameters 1e-4
               relative).
               starcoder2-7b at full width
-              cut to 2 layers on (data=1, model=8), context parallel (36
+              cut to 1 layer on (data=1, model=8), context parallel (36
               heads over 8): prefill logits (f32 1e-3, bf16 as the dense
               prefill checks) and an f32 step's grads (1e-3) against the
               unsharded ones, each rank's flash launches.  The int8 ring
               all-reduce (tests/test_parallel.py's bounds, and one olmoe
               layer's gradient size timed), the GPipe pipeline (4 stages
-              x 2 replicas, d=4096, atol 1e-4), and three dry-run cells in
+              x 2 replicas, d=4096, atol 1e-4), and five dry-run cells in
               subprocesses (rwkv6 decode_32k, whisper prefill_32k
-              multi-pod, gemma2 long_500k: SKIP), each cell's FLOPs a
-              device (the busiest of rank 0 and the last model position)
-              and collective bytes beside the reference's dry-run of it
-              (CPU counts).  The sharded loss: cross_entropy on f32
+              multi-pod, zamba2 and rwkv6 long_500k, their collective
+              bytes within 1.10x of the reference's, gemma2 long_500k:
+              SKIP), each cell's FLOPs a device (the busiest of rank 0 and
+              the last model position) and collective bytes beside the
+              reference's dry-run of it (CPU counts).  The sharded loss: cross_entropy on f32
               logits (4, 128, 256000) laid out over (data=2, model=4)
               against the unsharded loss (value and gradient within
               1e-5 relative), its collectives as OpStats counts them
@@ -1575,6 +1578,9 @@ SMR_HEAVY_PROMPTS = 2
 #: 57-66 s each on 2 prompts (the phase's longest runs, on the H100's host)
 SMR_SLOWEST = ("HP", "HPAsym")
 SMR_SLOWEST_PROMPTS = 1
+#: the others serve the 4 prompts that share the prefix (all 8 before: the
+#: script took 1205.7 s once on a slow host)
+SMR_LIGHT_PROMPTS = 4
 #: smr serve runs at once, one process each: four copies of the weights
 #: (14.8 GB) and the pages (2.1 GB) fit the card's 80 GB beside the
 #: script's own process, which drops its copy during the phase
@@ -1629,16 +1635,16 @@ SMR_MAX_NEW = 4
 
 def smr_serve_run(cfg, params, scheme: str, backend: str, card: str,
                   max_new: int = SMR_MAX_NEW) -> None:
-    """The serve phase's traffic (8 requests, 4 sharing a 96-token prefix;
-    a heavy scheme the first SMR_HEAVY_PROMPTS of those, the slowest the
-    first SMR_SLOWEST_PROMPTS) at ``max_new`` tokens each under one
+    """The serve phase's traffic (its first SMR_LIGHT_PROMPTS requests,
+    which share a 96-token prefix; a heavy scheme the first
+    SMR_HEAVY_PROMPTS of those, the slowest the first SMR_SLOWEST_PROMPTS) at ``max_new`` tokens each under one
     scheme of the SMR registry: the
     simulator-backed policy decides when each device page is freed (and
     poisoned).  Raises on a failed check; prints one line."""
     prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
-    if scheme in SMR_HEAVY:
-        prompts = prompts[:SMR_SLOWEST_PROMPTS if scheme in SMR_SLOWEST
-                          else SMR_HEAVY_PROMPTS]
+    prompts = prompts[:SMR_SLOWEST_PROMPTS if scheme in SMR_SLOWEST
+                      else SMR_HEAVY_PROMPTS if scheme in SMR_HEAVY
+                      else SMR_LIGHT_PROMPTS]
     eng = _engine(cfg, params, smr=scheme, backend=backend)
     reqs, wall, launches = _serve(eng, prompts, max_new, f"{scheme}@{backend}")
     checks = _serve_checks(eng, reqs, launches, [max_new] * len(reqs),
@@ -3508,6 +3514,10 @@ def phase_train(card: str):
 
 DIST_RANKS = 8
 EP_STEPS = 1                     # olmoe EP bf16 train steps (2 before)
+# the depth of the olmoe EP and starcoder2 CP cases (2 layers each before:
+# the script took 1205.7 s once on a slow host)
+EP_LAYERS = 1
+CP_LAYERS = 1
 DIST_TIMEOUT_S = 480.0           # the ranks' limit, spawn included
 # Gloo on CUDA tensors (an H100, torch 2.11.0+cu128; each collective tried
 # alone in 8 processes of their own): its all-gather into a tensor crashes
@@ -3524,18 +3534,27 @@ FEEDBACK_TOL = 0.005
 PIPE_ATOL = 1e-4
 DRYRUN_CELLS = (("rwkv6_1p6b", "decode_32k", False),
                 ("whisper_small", "prefill_32k", True),
+                ("zamba2_2p7b", "long_500k", False),
+                ("rwkv6_1p6b", "long_500k", False),
                 ("gemma2_27b", "long_500k", False))
 # the reference's dry-run of the same cells, FLOPs a device: counts of
 # work, from `python -m repro.launch.dryrun` run on a CPU with jax.make_mesh
 # defaulting to Auto axes (tests/test_torch_dryrun_parity.py's wrapper),
 # not a time on any chip; gemma2 long_500k is a skip in both packages
 REF_DRYRUN_FLOPS = {("rwkv6_1p6b", "decode_32k", False): 1452277760.0,
-                    ("whisper_small", "prefill_32k", True): 3554671337472.0}
+                    ("whisper_small", "prefill_32k", True): 3554671337472.0,
+                    ("zamba2_2p7b", "long_500k", False): 215923456.0,
+                    ("rwkv6_1p6b", "long_500k", False): 12451840.0}
 # and its collective bytes a device (ring formulas over its HLO's
 # collectives): the same run's counts
 REF_DRYRUN_COLLECTIVE = {("rwkv6_1p6b", "decode_32k", False): 351316928.0,
                          ("whisper_small", "prefill_32k", True):
-                         4489163776.0}
+                         4489163776.0,
+                         ("zamba2_2p7b", "long_500k", False): 991447.5,
+                         ("rwkv6_1p6b", "long_500k", False): 674215.5}
+# a batch-1 decode cell's collective bytes over the reference's
+# (tests/test_torch_dryrun_parity.py's GATHERED_LIMIT)
+DRYRUN_LONG_LIMIT = 1.10
 DRYRUN_TIMEOUT_S = 600.0
 
 
@@ -3748,14 +3767,14 @@ def _f32(tree):
 
 
 def _dist_olmoe(rank: int, failed: list) -> dict:
-    """olmoe-1b-7b cut to 2 layers on (data=2, model=4): expert parallelism
+    """olmoe-1b-7b cut to EP_LAYERS on (data=2, model=4): expert parallelism
     over model, FSDP over data.  Held against the unsharded step (rank 0
     runs it first, the others waiting) with no token dropped and the aux
     losses off; then one bf16 train step with the config's own capacity
     and aux."""
     full = olmoe_1b_7b.CONFIG
     base = full.scaled(groups=(dataclasses.replace(full.groups[0],
-                                                   repeats=2),))
+                                                   repeats=EP_LAYERS),))
     cmp_cfg = base.scaled(moe=dataclasses.replace(
         base.moe, capacity_factor=8.0, aux_coef=0.0, router_z_coef=0.0))
     B, S = 4, 2048
@@ -3993,14 +4012,14 @@ def _dist_olmoe_decode(rank: int, failed: list) -> dict:
 
 
 def _dist_cp(rank: int, failed: list) -> dict:
-    """starcoder2-7b cut to 2 layers on (data=1, model=8): 36 heads do not
+    """starcoder2-7b cut to CP_LAYERS on (data=1, model=8): 36 heads do not
     divide 8, so attention runs context parallel (each rank the flash
     kernel on its 256 query rows at q_offset = rank x 256).  The prefill
     logits (bf16, f32) and one f32 step's grads against the unsharded
     ones (rank 0)."""
     full = starcoder2_7b.CONFIG
     cfg = full.scaled(groups=(dataclasses.replace(full.groups[0],
-                                                  repeats=2),))
+                                                  repeats=CP_LAYERS),))
     B, S = 2, 2048
     mesh = make_host_mesh((1, 8), ("data", "model"))
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -4083,6 +4102,7 @@ LAYOUT_CASES = (
     ("deepseek_v3_671b", "decode", (2, 4), 4),    # MLA's latent attention
     ("rwkv6_1p6b", "decode", (4, 2), 1),          # stationary, batch 1
     ("zamba2_2p7b", "decode", (2, 4), 4),         # stationary matmuls
+    ("zamba2_2p7b", "decode", (2, 4), 1),         # Mamba2 by heads, batch 1
 )
 LAYOUT_SEQ, LAYOUT_CACHE = 16, 16      # train / prefill tokens; cache length
 
@@ -4171,7 +4191,9 @@ def _dist_layouts(rank: int, failed: list) -> dict:
     cache whose sequence holds ``model`` (starcoder2's 2 kv heads over 4:
     the softmax combined over slices), MLA's latent attention over its
     sharded cache (deepseek), and the stationary products of decode at
-    batch 1 (rwkv6) and 4 (zamba2).  Every tensor within DIST_LOSS_TOL
+    batch 1 (rwkv6) and 4 (zamba2), and zamba2's at batch 1 (Mamba2 by
+    heads: in_proj's and the conv's shards realigned by all-to-all, the
+    vectors used where they lie).  Every tensor within DIST_LOSS_TOL
     relative (a norm ratio); a leaf the unsharded run leaves all zero must
     be all zero.  Returns each case's kernel launches on this rank."""
     out = {}
@@ -4185,7 +4207,7 @@ def _dist_layouts(rank: int, failed: list) -> dict:
         run = _layout_train if step == "train" else _layout_decode
         ref, got, launches = run(cfg, mesh, params, dp, B, rank)
         ms = 1e3 * (time.monotonic() - t0)
-        name = f"{cfg.name} {step} {shape}"
+        name = f"{cfg.name} {step} {shape} B={B}"
         out[name] = {k: launches[k] for k in ("flash_attention",
                                               "linear_scan")}
         if rank == 0:
@@ -4593,7 +4615,8 @@ def _finish_dryruns(procs, out_dir: str, deadline: float) -> None:
         said = [ln for ln in text.splitlines() if ln.startswith("[dryrun]")]
         name = f"{arch}_{shape}{'_mp' if multi else ''}.json"
         cell = json.loads(Path(out_dir, name).read_text())
-        if shape == "long_500k":
+        if (arch, shape, multi) not in REF_DRYRUN_FLOPS:
+            # a skip in the reference's dry-run: a skip here too
             ok = p.returncode == 0 and any("SKIP" in ln for ln in said)
             log(f"dryrun {arch} x {shape}: {said[0] if said else text[-300:]}"
                 f": {ok}")
@@ -4610,7 +4633,9 @@ def _finish_dryruns(procs, out_dir: str, deadline: float) -> None:
                   and abs(sum(t["share"] for t in cell["top_collectives"])
                           - 1) < 1e-9
                   and r.get("flops_per_device", 0) > 0 and r.get("bottleneck")
-                  in ("compute", "memory", "collective"))
+                  in ("compute", "memory", "collective")
+                  and (shape != "long_500k"
+                       or coll <= DRYRUN_LONG_LIMIT * want_coll))
             log(f"dryrun {arch} x {shape} ({'multi' if multi else 'single'}"
                 f"-pod, {cell.get('n_devices')} devices): {said[0] if said else ''}"
                 f"; per device {flops:.4e} FLOPs, the busiest of ({ranks}) "
@@ -4691,9 +4716,9 @@ def phase_dist(card: str, dry=None) -> int:
         launched = {k: sum(sum(got[k]) for got in layouts.values())
                     + sum(r["checkpoint"][k] for r in ranks)
                     for k in ("flash_attention", "linear_scan")}
-        for name, want in (("llama-vision-smoke train (2, 4)",
+        for name, want in (("llama-vision-smoke train (2, 4) B=4",
                             "flash_attention"),
-                           ("zamba2-smoke train (2, 4)", "linear_scan")):
+                           ("zamba2-smoke train (2, 4) B=4", "linear_scan")):
             if any(n == 0 for n in layouts[name][want]):
                 raise AssertionError(f"dist: a rank of {name} launched no "
                                      f"{want}: {layouts[name]}")

@@ -187,7 +187,9 @@ def ranks_differ(cfg, shape, mesh) -> bool:
     only where a train or prefill step runs a causal self-attention whose
     heads ``model`` does not divide (the ``"seq"`` layout, context
     parallelism: each slice scores the pairs up to its own positions).
-    Every other layout gives each ``model`` rank the same shapes."""
+    Every other layout gives each ``model`` rank the same shapes, but for
+    the exchanges of Mamba2's decode by heads, where rank 0 sends the
+    most (``models/ssm.py::_mamba2_decode_sharded``)."""
     if shape.kind == "decode" or "model" not in sh.axis_names(mesh):
         return False
     causal = cfg.mtp and shape.kind == "train" or any(

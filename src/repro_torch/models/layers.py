@@ -128,7 +128,8 @@ def _norm_local(x: torch.Tensor, scale: torch.Tensor, eps: float):
     own placements and global shape (uneven shards too); where the last
     dim is sharded or x is a ``Partial`` sum, DTensor's own ops on the
     whole."""
-    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.parallel.sharding import (along_last_placements,
+                                               is_dtensor)
     if not is_dtensor(x):
         return _norm_rows(x, scale, eps)
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -137,10 +138,24 @@ def _norm_local(x: torch.Tensor, scale: torch.Tensor, eps: float):
                                             and p.dim % x.dim() != x.dim() - 1)
                for p in where):
         return _norm_pass(x, 1.0 + scale.float(), eps)
-    if is_dtensor(scale):
-        scale = scale.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
-    out = _norm_rows(x.to_local(), scale, eps).contiguous()
     stride = tuple(math.prod(x.shape[d + 1:]) for d in range(x.dim()))
+    if is_dtensor(scale):
+        # a scale sharded over an axis over which x is whole is used where
+        # it lies: the output is cut there to the scale's slice of the
+        # last dim (``along_last``), the mean still over whole rows
+        cut, want = along_last_placements(x, scale)
+        scale = scale.redistribute(mesh, want).to_local()
+        if cut != where:
+            from torch.distributed.tensor._utils import (
+                compute_local_shape_and_global_offset)
+            lo = compute_local_shape_and_global_offset(
+                x.shape, mesh, cut)[1][x.dim() - 1]
+            out = _norm_pass(x.to_local(), 1.0 + scale.float(), eps,
+                             cut=(lo, lo + scale.shape[0]))
+            return DTensor.from_local(out.contiguous(), mesh, cut,
+                                      run_check=False, shape=x.shape,
+                                      stride=stride)
+    out = _norm_rows(x.to_local(), scale, eps).contiguous()
     return DTensor.from_local(out, mesh, where, run_check=False,
                               shape=x.shape, stride=stride)
 
@@ -162,14 +177,20 @@ def _norm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float):
 
 
 def _norm_pass(x: torch.Tensor, s: torch.Tensor, eps: float,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None,
+               cut: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The norm of rows ``x`` scaled by ``s`` (``1 + scale`` in f32), into
     ``out`` when given: the grad path's products in its order, in place
-    on the f32 copy (one f32 temporary of x's size, not two)."""
+    on the f32 copy (one f32 temporary of x's size, not two).  With
+    ``cut`` (``lo``, ``hi``) only those entries of each row are scaled
+    and returned (``s`` their scale), the mean still over whole rows."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     r = torch.rsqrt(var + eps)
-    if x32 is x:                  # f32: x is the caller's, left as it is
+    theirs = x32 is x             # f32: x is the caller's, left as it is
+    if cut is not None:
+        x, x32 = x[..., cut[0]:cut[1]], x32[..., cut[0]:cut[1]]
+    if theirs:
         y = torch.mul(x, r) if out is None else torch.mul(x, r, out=out)
         return y.mul_(s)
     x32.mul_(r).mul_(s)

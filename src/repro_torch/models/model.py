@@ -369,8 +369,10 @@ def _residual(x, o):
 def _post_norm(o, scale, cfg):
     """A post-norm of a sublayer's output; under a mesh the output is
     pinned to the stream's layout first, so the norm (not linear in it)
-    meets a sum, not a ``Partial`` one, in both passes."""
-    return L.rms_norm(constrain(o, _STREAM), scale, cfg.norm_eps)
+    meets a sum, not a ``Partial`` one, in both passes.  It feeds the
+    whole stream, so its scale is gathered (decode leaves it where it
+    lies: :func:`_at_use`)."""
+    return L.rms_norm(constrain(o, _STREAM), unshard(scale), cfg.norm_eps)
 
 
 _EXPERTS = ("wi_gate", "wi_up", "wo")    # a "moe" block's expert weights
@@ -380,12 +382,16 @@ def _at_use(tree, mode: str, key: str = ""):
     """One repeat's weights as its products use them: FSDP's gather at use
     (``unshard``), except where a product uses a weight where it lies --
     the MoE's experts (``models/moe.py`` lays them out itself) and, in
-    decode, every matrix (one token a row moves less than a weight does:
-    ``layers.linear``); vectors are gathered in every mode."""
+    decode, every weight: a matrix's product moves the token, not the
+    weight (``layers.linear``), and a vector (a pre-norm's scale, RWKV-6's
+    ``mu``) meets the token on the rank's slice of the embed dim, the
+    slice that product takes, or is gathered by its use where it meets
+    the whole row or rows sharded over its axis (``sharding.along_last``,
+    ``layers.rms_norm``, :func:`_post_norm`)."""
     if isinstance(tree, dict):
         return {k: (v if key == "moe" and k in _EXPERTS
                     else _at_use(v, mode, k)) for k, v in tree.items()}
-    if mode == "decode" and isinstance(tree, torch.Tensor) and tree.dim() > 1:
+    if mode == "decode":
         return tree
     return unshard(tree)
 
@@ -601,7 +607,7 @@ def apply_model(
                                shared_params=params.get("shared_attn"),
                                impl=impl)
 
-    x = L.rms_norm(x, unshard(params["final_norm"]), cfg.norm_eps)
+    x = L.rms_norm(x, _at_use(params["final_norm"], mode), cfg.norm_eps)
     if cfg.mtp and mode == "train":
         aux["mtp_hidden"] = x     # the MTP head's input, for the loss
     if mode == "prefill":

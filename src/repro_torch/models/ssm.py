@@ -9,8 +9,10 @@ Prefill and train run the chunked scan (``kernels/linear_scan.py``; its
 plain version on the CPU); decode runs one recurrent step in plain
 PyTorch, as the reference does.  Decode writes its new states INTO the
 stacked cache tensors, in place; the reference returns new arrays.  Under
-a mesh, Mamba2's train and prefill run each ``model`` rank on its own
-heads (:func:`_mamba2_sharded`).
+a mesh, Mamba2 runs each ``model`` rank on its own heads: train and
+prefill with the weights re-laid (:func:`_mamba2_sharded`), decode with
+the weights and caches where they lie and the token's projections
+realigned (:func:`_mamba2_decode_sharded`).
 """
 
 from __future__ import annotations
@@ -138,7 +140,10 @@ def apply_mamba2(
     layer_idx=None,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    if mode != "decode" and _heads_split(x, cfg):
+    if mode == "decode" and _heads_split(x, cfg):
+        g, new_cache = _mamba2_decode_sharded(p, x, cfg=cfg, cache=cache,
+                                              layer_idx=layer_idx)
+    elif mode != "decode" and _heads_split(x, cfg):
         g, new_cache = _mamba2_sharded(p, x, cfg=cfg, mode=mode, impl=impl)
     else:
         xt = x.dtype
@@ -152,24 +157,25 @@ def apply_mamba2(
     return linear(y, p["out_proj"]), new_cache
 
 
+def _conv_step(conv_state, xbc, conv_w, conv_b):
+    """One decode token through the causal conv: (its activated output
+    (B,1,ch), the new raw window tail (B,dc-1,ch))."""
+    win = torch.cat([conv_state, xbc], dim=1)            # (B, dc, ch)
+    xbc_conv = torch.einsum("btc,tc->bc", win, conv_w) + conv_b
+    return F.silu(xbc_conv)[:, None], win[:, 1:]
+
+
 def _mamba2_mix(z, xbc, dt, conv_w, conv_b, A_log, D_skip, dt_bias, *, cfg,
                 mode, cache=None, layer_idx=None, impl=None):
     """The mixer between the projections: the causal conv over the x, B
-    and C channels ``xbc``, the scan (decode: one step) over the heads of
-    ``dt``, the skip, and the gate: (y * silu(z), new cache).  The heads
-    (and the x channels) may be one rank's share; B and C are whole."""
+    and C channels ``xbc``, then :func:`_mamba2_heads`: (y * silu(z), new
+    cache).  The heads (and the x channels) may be one rank's share; B and
+    C are whole."""
     _, _, ds, dc = mamba2_dims(cfg)
-    hd = cfg.ssm.head_dim
-    B, S = xbc.shape[:2]
-    d_inner = xbc.shape[-1] - 2 * ds
-    nh = dt.shape[-1]
-
+    S = xbc.shape[1]
     if mode == "decode":
-        conv_state = _st_read(cache["conv"], layer_idx)  # (B, dc-1, ch)
-        win = torch.cat([conv_state, xbc], dim=1)        # (B, dc, ch)
-        xbc_conv = torch.einsum("btc,tc->bc", win, conv_w) + conv_b
-        xbc_conv = F.silu(xbc_conv)[:, None]             # (B,1,ch)
-        new_conv = win[:, 1:]
+        xbc_conv, new_conv = _conv_step(_st_read(cache["conv"], layer_idx),
+                                        xbc, conv_w, conv_b)
     else:
         xbc_pad = F.pad(xbc, (0, 0, dc - 1, 0))
         # causal depthwise conv, width dc
@@ -180,6 +186,27 @@ def _mamba2_mix(z, xbc, dt, conv_w, conv_b, A_log, D_skip, dt_bias, *, cfg,
         # copy: a view would keep the whole projection alive in the cache)
         new_conv = (xbc[:, S - (dc - 1):].clone() if mode == "prefill"
                     else None)
+    g, state = _mamba2_heads(
+        z, xbc_conv, dt, A_log, D_skip, dt_bias, cfg=cfg, mode=mode,
+        state=_st_read(cache["ssm"], layer_idx) if mode == "decode" else None,
+        impl=impl)
+    if mode == "decode":
+        return g, {"conv": _st_write(cache["conv"], layer_idx, new_conv),
+                   "ssm": _st_write(cache["ssm"], layer_idx, state)}
+    return g, ({"conv": new_conv, "ssm": state} if mode == "prefill"
+               else None)
+
+
+def _mamba2_heads(z, xbc_conv, dt, A_log, D_skip, dt_bias, *, cfg, mode,
+                  state=None, impl=None):
+    """The scan (decode: one step from ``state``) over the heads of ``dt``
+    on the conv's output ``xbc_conv`` (x | B | C), the skip and the gate:
+    (y * silu(z), the new or final ssm state)."""
+    ds = cfg.ssm.d_state
+    hd = cfg.ssm.head_dim
+    B = xbc_conv.shape[0]
+    d_inner = xbc_conv.shape[-1] - 2 * ds
+    nh = dt.shape[-1]
 
     xs = xbc_conv[..., :d_inner].reshape(B, -1, nh, hd)
     Bmat = xbc_conv[..., d_inner: d_inner + ds]          # (B,T,ds) single group
@@ -194,20 +221,15 @@ def _mamba2_mix(z, xbc, dt, conv_w, conv_b, A_log, D_skip, dt_bias, *, cfg,
     vv = xs * dt[..., None].to(xs.dtype)
 
     if mode == "decode":
-        out, new_state = _scan_step(
-            qk_C[:, 0], qk_B[:, 0], vv[:, 0], log_decay[:, 0],
-            _st_read(cache["ssm"], layer_idx))
+        out, state = _scan_step(qk_C[:, 0], qk_B[:, 0], vv[:, 0],
+                                log_decay[:, 0], state)
         y = out[:, None]                                 # (B,1,nh,hd)
-        new_cache = {"conv": _st_write(cache["conv"], layer_idx, new_conv),
-                     "ssm": _st_write(cache["ssm"], layer_idx, new_state)}
     else:
-        y, final_state = _scan(qk_C, qk_B, vv, log_decay, impl=impl)
-        new_cache = ({"conv": new_conv, "ssm": final_state}
-                     if mode == "prefill" else None)
+        y, state = _scan(qk_C, qk_B, vv, log_decay, impl=impl)
 
     y = y + D_skip.to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(B, -1, d_inner)
-    return y * F.silu(z), new_cache
+    return y * F.silu(z), state
 
 
 def _heads_split(x, cfg) -> bool:
@@ -294,6 +316,83 @@ def _mamba2_sharded(p, x, *, cfg, mode, impl=None):
     return g, {"conv": torch.cat([conv_x, conv_bc], dim=-1), "ssm": state}
 
 
+def _mamba2_decode_sharded(p, x, *, cfg, cache, layer_idx):
+    """A decode step of Mamba2 under a mesh, each ``model`` rank on its
+    own heads, every weight and cache leaf where it lies: the token moves,
+    not the weights.  in_proj's product comes out as its column shards
+    (z | x | B | C | dt, cut where the heads do not follow), and the conv's
+    weights and tail lie as channel shards of x | B | C (the cache's
+    ``mlp_state`` layout, the reference's).  So one all-to-all over
+    ``model`` (:func:`sharding.realign`) hands each rank its heads' z and
+    dt columns and the raw channels of its conv shard; the conv steps
+    there, its new tail written where the cache holds it; a second
+    all-to-all hands each rank its heads' x channels, and B and C, which
+    every head shares, are broadcast whole from the rank whose conv shard
+    holds them (:func:`sharding.shared_range`).  The scan steps the
+    rank's heads of the ssm state.  The gate comes out with its channels
+    over ``model``: the gated norm sums squares over them (a per-token
+    all-reduce) and ``out_proj`` is row-parallel."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = shlib.axis_names(mesh)
+    tp = shlib.axis_size(mesh, "model") if "model" in names else 1
+    r = mesh.get_local_rank("model") if "model" in names else 0
+    group = mesh.get_group("model") if tp > 1 else None
+    d_inner, nh, ds, _ = mamba2_dims(cfg)
+    di, nl = d_inner // tp, nh // tp
+    xt = x.dtype
+    zx = linear(x, p["in_proj"])
+    conv = _st_read(cache["conv"], layer_idx)
+    state = _st_read(cache["ssm"], layer_idx)
+    m = names.index("model") if tp > 1 else None
+
+    def cut(t, dim):
+        """Each rank's ``[lo, hi)`` of ``t``'s dim over ``model``."""
+        if m is None or not isinstance(t.placements[m], Shard):
+            return ((0, t.shape[dim]),) * tp
+        return shlib.chunks(t.shape[dim], tp)
+
+    cols, chans = cut(zx, 2), cut(conv, 2)
+    dt0 = 2 * (d_inner + ds)
+    into_conv = shlib.exchange_plan(
+        tuple((c,) for c in cols),
+        tuple(((j * di, (j + 1) * di), (d_inner + lo, d_inner + hi),
+               (dt0 + j * nl, dt0 + (j + 1) * nl))
+              for j, (lo, hi) in enumerate(chans)), r)
+    into_heads = shlib.exchange_plan(
+        tuple((c,) for c in chans),
+        tuple(((j * di, (j + 1) * di),) for j in range(tp)), r)
+    ccl = chans[r][1] - chans[r][0]
+
+    def body(zl, cs, st, cw, cb, a_log, d_skip, dt_bias):
+        z, xbc, dt = torch.split(shlib.realign(zl, into_conv, group),
+                                 (di, ccl, nl), dim=-1)
+        xbc_conv, new_conv = _conv_step(cs, xbc, cw.to(xt), cb.to(xt))
+        xbc_conv = torch.cat([
+            shlib.realign(xbc_conv, into_heads, group),
+            shlib.shared_range(xbc_conv, chans, d_inner, d_inner + 2 * ds,
+                               r, group)], dim=-1)
+        g, new_state = _mamba2_heads(z, xbc_conv, dt, a_log, d_skip,
+                                     dt_bias, cfg=cfg, mode="decode",
+                                     state=st)
+        return g, new_conv, new_state
+
+    rows = [q if n != "model" else Shard(2) if m is not None and isinstance(
+        zx.placements[m], Shard) else Replicate()
+        for n, q in zip(names, zx.placements)]
+    out = [q if n != "model" else Shard(2) for n, q in zip(names, rows)]
+    g, new_conv, new_state = shlib.local_map(
+        body, (out, list(conv.placements), list(state.placements)),
+        (rows, list(conv.placements), list(state.placements),
+         list(p["conv_w"].placements), list(p["conv_b"].placements),
+         list(p["A_log"].placements), list(p["D_skip"].placements),
+         list(p["dt_bias"].placements)))(
+        zx, conv, state, p["conv_w"], p["conv_b"], p["A_log"], p["D_skip"],
+        p["dt_bias"])
+    return g, {"conv": _st_write(cache["conv"], layer_idx, new_conv),
+               "ssm": _st_write(cache["ssm"], layer_idx, new_state)}
+
+
 # ============================================================================
 # RWKV-6 (time mix + channel mix fused into one block)
 # ============================================================================
@@ -336,6 +435,12 @@ def rwkv6_specs(cfg: ArchConfig) -> Dict[str, Spec]:
 
 
 def _lerp(x, xs, mu):
+    """``x + (xs - x) * mu``; under a mesh on the slice of the embed dim
+    where ``mu`` lies (``sharding.along_last``: decode at batch 1), ``xs``
+    laid out as ``x``."""
+    x, mu = shlib.along_last(x, mu)
+    if shlib.is_dtensor(xs) and xs.placements != x.placements:
+        xs = xs.redistribute(x.device_mesh, x.placements)
     return x + (xs - x) * mu.to(x.dtype)
 
 

@@ -20,6 +20,7 @@ no process group) for deciding layouts alone.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -499,7 +500,9 @@ def stationary_matmul(x, w):
     row, so the activations moved are small.  The result is laid out as
     the product after FSDP's gather would be: ``x``'s leading dims as they
     came, N sharded where ``w``'s N is over a non-FSDP axis, ``Partial``
-    where its K is.  No gradient: decode's products."""
+    where its K is -- but where an FSDP axis gathers N whole (rows whole
+    on every rank), each sum is taken first on the N shard and the result
+    comes out whole.  No gradient: decode's products."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = w.device_mesh
     names, fsdp = axis_names(mesh), set(fsdp_axes(mesh))
@@ -534,7 +537,124 @@ def stationary_matmul(x, w):
             want.append(Replicate())
         else:
             want.append(Shard(last) if p.dim == 1 else Partial())
+    if any(isinstance(p, Shard) and p.dim == last and q.is_replicate()
+           for p, q in zip(ypl, want)):
+        # N is gathered whole (rows whole on every rank: a batch-1 decode
+        # token): each sum over ranks is taken first, on the N shard, so
+        # its all-reduce moves a shard of the row, not the whole row, and
+        # the result comes out whole (the sum it stood for, taken)
+        want = [Replicate() if isinstance(q, Partial) else q for q in want]
+        y = y.redistribute(mesh, [
+            Replicate() if isinstance(p, Partial) and q.is_replicate() else p
+            for p, q in zip(ypl, want)])
     return y.redistribute(mesh, want)
+
+
+def along_last(x, v):
+    """``(x, v)`` laid out for an elementwise product of ``x`` with a
+    vector ``v`` along its last dim.  Over a mesh axis that shards ``v``
+    and over which ``x`` is whole (or has its last dim sharded as ``v``
+    is), ``v`` is used where it lies and ``x`` cut to its slice (a local
+    view: no communication); over an axis that shards ``x``'s rows
+    (a batch over the FSDP axes), ``v`` is gathered whole.  A decode step
+    at batch 1 thus applies each FSDP-sharded vector (a norm's scale,
+    RWKV-6's ``mu``) on the rank's slice of the embed dim, the slice its
+    next product (:func:`stationary_matmul`) takes anyway.  Plain tensors
+    are returned as they are."""
+    if not (is_dtensor(x) and is_dtensor(v)):
+        return x, v
+    xw, vw = along_last_placements(x, v)
+    if xw != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, xw)
+    if vw != tuple(v.placements):
+        v = v.redistribute(v.device_mesh, vw)
+    return x, v
+
+
+def along_last_placements(x, v):
+    """:func:`along_last`'s placements of DTensors ``x`` and ``v``."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    xw, vw = [], []
+    for px, pv in zip(x.placements, v.placements):
+        cut = isinstance(pv, Shard) and (px.is_replicate() or (
+            isinstance(px, Shard) and px.dim == last))
+        xw.append(Shard(last) if cut else px)
+        vw.append(Replicate() if isinstance(pv, Shard) and not cut else pv)
+    return tuple(xw), tuple(vw)
+
+
+def chunks(n: int, parts: int):
+    """The ``[lo, hi)`` bounds of ``n`` items cut into ``parts`` chunks as
+    ``torch.chunk`` and DTensor's ``Shard`` cut them (the last ones short
+    or empty)."""
+    size = -(-n // parts)
+    return tuple((min(i * size, n), min((i + 1) * size, n))
+                 for i in range(parts))
+
+
+@functools.lru_cache(maxsize=None)
+def exchange_plan(src, dst, rank: int):
+    """How rank ``rank`` of a group realigns a vector's entries: ``src[i]``
+    are the global indices rank ``i`` holds and ``dst[j]`` those rank
+    ``j`` needs, in its order, each a tuple of ``[lo, hi)`` intervals.
+    Each needed entry comes from the rank itself where it holds it, else
+    from the lowest rank that does.  Returns (the positions in this rank's
+    entries of what it sends, by destination; the counts it sends to each
+    rank; the counts it receives from each; the positions in the received
+    entries of what it needs, in order)."""
+    def ids(iv):
+        return [g for lo, hi in iv for g in range(lo, hi)]
+    held = [set(ids(s)) for s in src]
+    need = [ids(d) for d in dst]
+    n = len(src)
+
+    def owner(g, j):
+        return j if g in held[j] else next(i for i in range(n)
+                                           if g in held[i])
+    mine = {g: k for k, g in enumerate(ids(src[rank]))}
+    send, sent = [], []
+    for j in range(n):
+        piece = [g for g in need[j] if owner(g, j) == rank]
+        send += [mine[g] for g in piece]
+        sent.append(len(piece))
+    got, counts = [], []
+    for i in range(n):
+        piece = [g for g in need[rank] if owner(g, rank) == i]
+        got += piece
+        counts.append(len(piece))
+    at = {g: k for k, g in enumerate(got)}
+    return tuple(send), tuple(sent), tuple(counts), tuple(at[g]
+                                                         for g in need[rank])
+
+
+_INDEX: Dict[Any, torch.Tensor] = {}
+
+
+def _index(pos, device) -> torch.Tensor:
+    """``pos`` as an index tensor on ``device``, made once a device."""
+    key = (pos, str(device))
+    if key not in _INDEX:
+        _INDEX[key] = torch.tensor(pos, dtype=torch.long, device=device)
+    return _INDEX[key]
+
+
+def realign(t: torch.Tensor, plan, group) -> torch.Tensor:
+    """A local tensor's last dim realigned across a process group by an
+    :func:`exchange_plan`: one all-to-all of only the entries each rank
+    lacks (and its own, which the exchange hands back), inside a
+    ``local_map``.  ``group`` None: a group of one, no exchange."""
+    send_pos, sent, counts, perm = plan
+    rows = t.reshape(-1, t.shape[-1])
+    send = rows.index_select(1, _index(send_pos, t.device)).t().contiguous()
+    if group is None:
+        got = send
+    else:
+        import torch.distributed._functional_collectives as funcol
+        got = funcol.wait_tensor(funcol.all_to_all_single(
+            send, list(counts), list(sent), group))
+    out = got.index_select(0, _index(perm, t.device)).t()
+    return out.reshape(*t.shape[:-1], len(perm))
 
 
 def unshard(tree):
@@ -569,17 +689,68 @@ def replicated_like(t: torch.Tensor, ref):
                               run_check=False)
 
 
+def shared_range(t: torch.Tensor, src, lo: int, hi: int, rank: int,
+                 group) -> torch.Tensor:
+    """Entries ``[lo, hi)`` of a vector's last dim laid out over a group
+    by ``src`` (rank ``i`` holds ``src[i]``, one ``[lo, hi)`` interval),
+    on every rank: each piece broadcast from the first rank that holds it
+    (inside a ``local_map``); taken locally where every rank holds them
+    all (``group`` None: a group of one)."""
+    a = src[rank][0]
+    if group is None or all(s[0] <= lo and hi <= s[1] for s in src):
+        return t[..., lo - a: hi - a]
+    import torch.distributed._functional_collectives as funcol
+    parts, at = [], lo
+    while at < hi:
+        o = next(i for i, s in enumerate(src) if s[0] <= at < s[1])
+        end = min(hi, src[o][1])
+        piece = (t[..., at - a: end - a].contiguous() if o == rank else
+                 t.new_empty(t.shape[:-1] + (end - at,)))
+        parts.append(funcol.wait_tensor(funcol.broadcast(piece, o, group)))
+        at = end
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+
 def argmax_last(x):
-    """``x.argmax(-1)``; a DTensor's last dim is gathered whole first where
-    it is sharded (the vocab over ``model``), so each rank takes the
-    argmax of whole rows (a greedy decode step gathers (B, V) logits)."""
+    """``x.argmax(-1)``.  Where a DTensor's last dim is sharded (the vocab
+    over ``model``), each rank takes the argmax of its own slice and the
+    ranks that share the rows exchange (value, index) pairs, one of each a
+    row: the best value wins, a NaN beating every number and the lower
+    index breaking ties, as ``argmax`` of the whole row picks.  A greedy
+    decode step moves two numbers a row, not (B, V) logits."""
     if not is_dtensor(x):
         return x.argmax(dim=-1)
     from torch.distributed.tensor import Replicate, Shard
     last = x.dim() - 1
-    want = [Replicate() if isinstance(p, Shard) and p.dim == last else p
-            for p in x.placements]
-    return x.redistribute(x.device_mesh, want).argmax(dim=-1)
+    where = list(x.placements)
+    if not any(isinstance(p, Shard) and p.dim == last for p in where):
+        return x.argmax(dim=-1)
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = x.device_mesh
+    _, groups = shard_index(mesh, where, last)
+    first = compute_local_shape_and_global_offset(x.shape, mesh,
+                                                  where)[1][last]
+    out = [Replicate() if isinstance(p, Shard) and p.dim == last else p
+           for p in where]
+
+    def local(xl):
+        import torch.distributed._functional_collectives as funcol
+        i = xl.argmax(dim=-1)
+        v = xl.gather(-1, i[..., None])[..., 0]
+        i = i + first
+        for g in groups:
+            vs = funcol.wait_tensor(funcol.all_gather_tensor(v[None], 0, g))
+            ids = funcol.wait_tensor(funcol.all_gather_tensor(i[None], 0, g))
+            nan = vs.isnan()
+            top = torch.where(nan, torch.full_like(vs, -math.inf),
+                              vs).amax(0)
+            anynan = nan.any(0)
+            pick = torch.where(anynan, nan, vs == top)
+            i = torch.where(pick, ids, torch.iinfo(ids.dtype).max).amin(0)
+            v = torch.where(anynan, torch.full_like(top, math.nan), top)
+        return i
+    return local_map(local, out, (where,))(x)
 
 
 def full(x):

@@ -49,7 +49,19 @@ collectives counted among the live bytes):
 * the count itself: a product's output counted twice (``mm`` and the
   ``_unsafe_view`` of it), a collective's output released while the
   DTensor that holds it lives, and a step's outputs added to live bytes
-  that held them already (XLA's temporaries leave the outputs out)."""
+  that held them already (XLA's temporaries leave the outputs out).
+
+And the collectives of a decode step at batch 1 (long_500k), on the
+single pod and on the multi-pod mesh (2 x 16 x 16, cells ``arch:shape:
+multi``):
+
+* Mamba2's decode gathered in_proj's output whole on every ``model``
+  rank and each slice of its conv output again, every FSDP-sharded
+  vector was gathered at use though its product took the rank's slice of
+  it, a row-parallel output was gathered over the FSDP axes before its
+  sum over ``model`` and the greedy token's logits were gathered whole:
+  zamba2 and rwkv6 long_500k's collective bytes (and their FLOPs and
+  memory a device)."""
 
 import json
 import subprocess
@@ -68,7 +80,11 @@ CELLS = [("olmoe_1b_7b", "decode_32k"), ("deepseek_v3_671b", "decode_32k"),
          ("zamba2_2p7b", "train_4k"), ("stablelm_12b", "prefill_32k"),
          ("whisper_small", "prefill_32k"), ("olmoe_1b_7b", "train_4k"),
          ("deepseek_v3_671b", "train_4k"), ("codeqwen15_7b", "prefill_32k"),
-         ("gemma2_27b", "prefill_32k"), ("olmoe_1b_7b", "prefill_32k")]
+         ("gemma2_27b", "prefill_32k"), ("olmoe_1b_7b", "prefill_32k"),
+         ("zamba2_2p7b", "long_500k")]
+# batch-1 decode on both meshes (the multi-pod cells run besides CELLS)
+LONG_DECODE = [("zamba2_2p7b", "long_500k"), ("rwkv6_1p6b", "long_500k")]
+MULTI = [c + ("multi",) for c in LONG_DECODE]
 MOE_DECODE = [("olmoe_1b_7b", "decode_32k"),
               ("deepseek_v3_671b", "decode_32k")]
 GATHERED = [("zamba2_2p7b", "prefill_32k"), ("zamba2_2p7b", "train_4k"),
@@ -84,6 +100,7 @@ OUTPUT_LIMIT = 1.05         # a prefill's output bytes (logits and cache)
 MEMORY_LIMIT = 1.10         # a train or prefill cell's bytes a device
 CARD_GIB = 74.5             # an H100's 80 GB, in GiB
 LOSS_SHARE = 0.01           # the loss's share of a train cell's collectives
+DECODE_MEMORY_LIMIT = 1.0   # a batch-1 decode cell's bytes a device
 
 REFERENCE = """
 import os, sys
@@ -102,8 +119,8 @@ jax.make_mesh = make_mesh
 from repro.launch import dryrun
 out = sys.argv[1]
 for cell in sys.argv[2:]:
-    arch, shape = cell.split(":")
-    dryrun.run_cell(arch, shape, out_dir=out)
+    arch, shape, *mesh = cell.split(":")
+    dryrun.run_cell(arch, shape, out_dir=out, multi_pod=mesh == ["multi"])
 """
 
 PORT = """
@@ -111,8 +128,8 @@ import sys
 from repro_torch.launch import dryrun
 out = sys.argv[1]
 for cell in sys.argv[2:]:
-    arch, shape = cell.split(":")
-    dryrun.run_cell(arch, shape, out_dir=out)
+    arch, shape, *mesh = cell.split(":")
+    dryrun.run_cell(arch, shape, out_dir=out, multi_pod=mesh == ["multi"])
 """
 
 
@@ -120,7 +137,7 @@ for cell in sys.argv[2:]:
 def cells(tmp_path_factory):
     """Each cell's dry-run JSON: (the reference's, the port's)."""
     tmp = tmp_path_factory.mktemp("dryrun_parity")
-    cells = [f"{a}:{s}" for a, s in CELLS]
+    cells = [":".join(c) for c in CELLS + MULTI]
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
     # the port's cells in two processes, beside the reference's one
@@ -135,11 +152,13 @@ def cells(tmp_path_factory):
         out, _ = p.communicate(timeout=900)
         assert p.returncode == 0, f"{name}: {out[-3000:]}"
 
-    def load(name, arch, shape):
-        d = json.loads((tmp / name / f"{arch}_{shape}.json").read_text())
-        assert d["status"] == "ok", (name, arch, shape, d.get("error"))
+    def load(name, arch, shape, *mesh):
+        mp = "_mp" if mesh else ""
+        d = json.loads((tmp / name / f"{arch}_{shape}{mp}.json").read_text())
+        assert d["status"] == "ok", (name, arch, shape, mesh, d.get("error"))
         return d
-    return {cell: (load("ref", *cell), load("port", *cell)) for cell in CELLS}
+    return {cell: (load("ref", *cell), load("port", *cell))
+            for cell in CELLS + MULTI}
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +189,33 @@ def test_collective_bytes_within_reference(grids, cell):
     ratio = (port["collective_bytes_per_device"]
              / ref["collective_bytes_per_device"])
     assert ratio <= GATHERED_LIMIT, (cell, ratio)
+
+
+@pytest.mark.parametrize("cell", LONG_DECODE + MULTI, ids="-".join)
+def test_long_decode_collective_bytes_within_reference(grids, cell):
+    """A decode step at batch 1 moves the token, not the weights, and
+    each collective only what a rank lacks: in_proj's column shards and
+    the conv's channel shards realigned to Mamba2's heads, every
+    FSDP-sharded vector used where it lies, a row-parallel output summed
+    on its shard before it is gathered, the greedy token's argmax taken
+    on each vocab shard."""
+    ref, port = grids[cell]
+    ratio = (port["collective_bytes_per_device"]
+             / ref["collective_bytes_per_device"])
+    assert ratio <= GATHERED_LIMIT, (cell, ratio)
+
+
+@pytest.mark.parametrize("cell", MULTI, ids="-".join)
+def test_multi_pod_decode_flops_within_reference(grids, cell):
+    ref, port = grids[cell]
+    ratio = port["flops_per_device"] / ref["flops_per_device"]
+    assert ratio <= FLOPS_LIMIT, (cell, ratio)
+
+
+@pytest.mark.parametrize("cell", LONG_DECODE + MULTI, ids="-".join)
+def test_long_decode_memory_within_reference(cells, cell):
+    ratio = _memory_ratio(cells, cell)
+    assert ratio <= DECODE_MEMORY_LIMIT, (cell, ratio)
 
 
 @pytest.mark.parametrize("cell", PREFILL, ids=lambda c: c[0])
