@@ -249,40 +249,59 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  stationary: bool = False) -> torch.Tensor:
     """Rows ``tokens`` of the embedding table.  Under a mesh (DTensor
-    table and tokens) the table is gathered whole and each rank looks up
-    its own tokens: the sharding propagation's masked lookup over a
-    vocab-sharded table does not take batch-sharded indices.  With
-    ``stationary`` (decode: a few tokens) the table stays where it lies
-    and the tokens move: each rank looks up, on its slice of the embed
-    dim, the tokens whose rows it holds and zeros for the rest, and the
-    sum over the vocab's ranks completes each row (a ``Partial`` result,
-    exact: one rank holds each row)."""
-    from repro_torch.parallel.sharding import (is_dtensor, local_map,
-                                               partial_over, replicated_like,
-                                               shard_index)
+    table and tokens) no rank holds the table whole: each looks up, on
+    the vocab rows it holds, the tokens those rows answer and zeros for
+    the rest, and the sum over the vocab's ranks completes each row (a
+    ``Partial`` result, exact: one rank holds each row; the stream's
+    first ``constrain`` sums it).  Train and prefill gather the rank's
+    vocab slice whole over the axes that shard the embed dim, the FSDP
+    axes (``sharding.gather_chunks``: its backward reduce-scatters the
+    table's gradient to the shards), and each rank looks up its own
+    batch's tokens there.  With ``stationary`` (decode: a few tokens)
+    the table stays where it lies and the tokens move: each rank looks
+    up every token on its slice of the vocab and of the embed dim."""
+    from repro_torch.parallel.sharding import (gather_chunks, is_dtensor,
+                                               local_map, partial_over,
+                                               replicated_like, shard_index)
     if not is_dtensor(table):
         return F.embedding(tokens.long(), table)
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = table.device_mesh
-    rep = [Replicate()] * mesh.ndim
     tok = tokens if is_dtensor(tokens) else replicated_like(tokens, table)
-    if not stationary:
-        where = list(tok.placements)
-        return local_map(lambda t, w: F.embedding(t.long(), w),
-                         where, (where, rep),
-                         (where, partial_over(rep, where)))(tok, table)
-    v_idx, _ = shard_index(mesh, table.placements, 0)
+    w_at = list(table.placements)
+    # decode's tokens come whole; train's and prefill's are whole over
+    # the vocab's axes and stay as they lie over the others
+    t_at = [Replicate() if stationary or isinstance(p, Shard) and p.dim == 0
+            else q for p, q in zip(w_at, tok.placements)]
+    v_idx, _ = shard_index(mesh, w_at, 0)
 
     def lookup(t, w):
         ids = t.long() - v_idx * w.shape[0]
         here = (ids >= 0) & (ids < w.shape[0])
-        rows = F.embedding(ids.clamp(0, w.shape[0] - 1), w)
-        return rows.masked_fill(~here[..., None], 0)
+        ids = ids.clamp(0, w.shape[0] - 1)
+        if stationary:
+            rows = F.embedding(ids, w)
+        else:
+            # the slice's embed chunks (n, V / vocab ranks, D / n) looked up
+            # as one table of n x V / vocab ranks rows (F.embedding's
+            # backward sums a row's repeats as the unsharded lookup's
+            # does), each token's n rows then laid side by side; the
+            # slice let go first
+            w = gather_chunks(w, mesh, w_at, 1, t_at)
+            n, v = w.shape[:2]
+            at = ids.reshape(1, -1) + v * torch.arange(
+                n, device=ids.device)[:, None]
+            del ids
+            rows = F.embedding(at, w.reshape(n * v, -1))
+            del w, at
+            rows = rows.permute(1, 0, 2).reshape(*here.shape, -1)
+        return rows.masked_fill_(~here[..., None], 0)
 
     out = [Partial() if isinstance(p, Shard) and p.dim == 0 else
-           Shard(tok.dim()) if isinstance(p, Shard) else Replicate()
-           for p in table.placements]
-    return local_map(lookup, out, (rep, list(table.placements)))(tok, table)
+           Shard(tok.dim()) if isinstance(p, Shard) and stationary else q
+           for p, q in zip(w_at, t_at)]
+    return local_map(lookup, out, (t_at, w_at),
+                     (t_at, partial_over(w_at, t_at)))(tok, table)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

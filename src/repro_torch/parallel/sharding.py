@@ -443,6 +443,60 @@ def all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
     return t
 
 
+class _Gather(torch.autograd.Function):
+    """A local shard's peers over process groups (the mesh axes that shard
+    one of its dims, outermost first, as :func:`shard_index` gives them),
+    stacked on a new leading dim in that chunk order: the innermost axis
+    first, each one all-gather into a new tensor, no copy of the shard.
+    Its gradient goes back to the shard the same way in reverse: summed
+    over a group whose ranks met different data (``sums``: one
+    reduce-scatter), else cut to the rank's chunk (every rank of it holds
+    the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, groups, ranks, sums):
+        ctx.args = (groups, ranks, sums)
+        f = torch.ops._c10d_functional
+        out = t
+        for g in reversed(groups):
+            out = f.wait_tensor(f.all_gather_into_tensor(
+                out.contiguous(), g.size(), g.group_name))
+        return out.view(-1, *t.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        groups, ranks, sums = ctx.args
+        f = torch.ops._c10d_functional
+        g = g.flatten(0, 1)
+        for grp, r, s in zip(groups, ranks, sums):
+            g = f.wait_tensor(f.reduce_scatter_tensor(
+                g.contiguous(), "sum", grp.size(), grp.group_name)) if s \
+                else g.chunk(grp.size())[r]
+        return g, None, None, None
+
+
+def gather_chunks(t: torch.Tensor, mesh, placements_, dim: int,
+                  data_placements) -> torch.Tensor:
+    """Inside a ``local_map``: every rank's chunk of tensor dim ``dim`` of a
+    DTensor laid out as ``placements_``, gathered over just the mesh axes
+    that shard that dim, as ``(n, *t.shape)``: chunk ``i`` of the dim at
+    index ``i``, no copy (DTensor's redistribution re-lays each gather's
+    result along ``dim`` by a copy, two of the whole live at once).  Its
+    gradient is reduce-scattered back to the shard over
+    each axis over which the data it meets (``data_placements``) is
+    sharded, and cut to the shard over the others; so the input's grad
+    placements are ``partial_over(placements_, data_placements)``."""
+    from torch.distributed.tensor import Shard
+    axes = [m for m, p in enumerate(placements_)
+            if isinstance(p, Shard) and p.dim == dim]
+    if not axes:
+        return t[None]
+    return _Gather.apply(
+        t, [mesh.get_group(m) for m in axes],
+        [mesh.get_local_rank(m) for m in axes],
+        [isinstance(data_placements[m], Shard) for m in axes])
+
+
 def add_in_place(x: torch.Tensor, o: torch.Tensor):
     """``x += o`` in x's own buffer, where no gradient is taken; None
     where the layouts do not allow it (the caller adds).  Under a mesh

@@ -67,7 +67,7 @@ from typing import List, Optional, Sequence, Tuple
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.runtime.block_pool import BlockPool, StaleHandoff
 from repro_torch.serve.worker import (EngineWorker, PrefillWorker, Reclaimer,
-                                Request, finalize_request)
+                                Request, finalize_request, join_stopped)
 
 #: prefill-queue ordering policies
 SCHED_POLICIES = ("fifo", "sjf", "deadline")
@@ -384,15 +384,23 @@ class Scheduler:
             self._mig_thread.start()
 
     def stop(self) -> None:
+        """Stop every actor; return once each one's thread has ended, else
+        raise (the first actor's error, after trying to stop the rest)."""
+        errors: List[RuntimeError] = []
+
+        def attempt(fn, *args) -> None:
+            try:
+                fn(*args)
+            except RuntimeError as e:
+                errors.append(e)
         # prefill first: a worker stopped mid-request re-queues it
         # (resumable) instead of handing work to decoders that are about
         # to stop
         for pw in self.prefill_workers:
-            pw.stop()
+            attempt(pw.stop)
         # migration monitor next, so nothing shuffles queues mid-teardown
         self._mig_stop.set()
-        if self._mig_thread is not None:
-            self._mig_thread.join(timeout=30)
+        attempt(join_stopped, self._mig_thread)
         # finalize whatever is stranded on the prefill queue, including
         # partially prefilled requests the stopping workers re-queued:
         # release their waiters and give their blocks back to the pool
@@ -407,9 +415,11 @@ class Scheduler:
                 break
             finalize_request(self.pool, r, self.tracer)
         for w in self.workers:
-            w.stop()
+            attempt(w.stop)
         if self.reclaimer is not None:
-            self.reclaimer.stop()
+            attempt(self.reclaimer.stop)
+        if errors:
+            raise errors[0]
 
     # -- aggregate views --
 

@@ -80,6 +80,22 @@ from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.runtime.block_pool import BlockPool, OutOfBlocks, StaleHandoff
 from repro_torch.runtime.kv_store import PagedKVStore
 
+#: how long ``stop()`` waits for an actor's thread to end before it raises
+STOP_TIMEOUT_S = 30.0
+
+
+def join_stopped(thread: Optional[threading.Thread]) -> None:
+    """Wait for a stopped actor's thread to end; raise if it outlives
+    :data:`STOP_TIMEOUT_S`.  A thread still running after ``stop()`` would
+    go on announcing, retiring and freeing beside whatever the caller does
+    next (a reclamation flush, a leak check)."""
+    if thread is None:
+        return
+    thread.join(timeout=STOP_TIMEOUT_S)
+    if thread.is_alive():
+        raise RuntimeError(f"thread {thread.name!r} still running "
+                           f"{STOP_TIMEOUT_S} s after stop()")
+
 
 @dataclass
 class Request:
@@ -552,8 +568,7 @@ class _PoolActor:
 
     def stop(self) -> None:
         self._stop.set()
-        if self._thread:
-            self._thread.join(timeout=30)
+        join_stopped(self._thread)
 
     def _thread_name(self) -> str:
         return f"actor-{self.engine_id}"
@@ -912,8 +927,7 @@ class Reclaimer:
 
     def stop(self) -> None:
         self._stop.set()
-        if self._thread:
-            self._thread.join(timeout=30)
+        join_stopped(self._thread)
 
     def _loop(self) -> None:
         try:

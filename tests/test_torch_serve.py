@@ -93,6 +93,29 @@ def test_epoch_pop_serving_with_prefix_sharing_is_safe():
     assert eng.kv_copy_stats()["bytes_h2d_per_step"] == 0
 
 
+def _drain(pool, rounds=None):
+    """Flush, round after round, until nothing is left retired: each round
+    gives every engine slot one empty step, then flushes.  Under the
+    simulated EBR one round may free nothing: a block retired at epoch e
+    is freed only where every other slot reads as past e, but a slot's
+    quiescent store (``end_op``) reaches another simulated thread only
+    once that thread's clock passes the store's drain time, and the
+    epoch moves on only at each thread's ``epoch_freq``-th step.  Within
+    ``2 * epoch_freq`` rounds a thread has moved the epoch past every
+    retire and each slot announces the later one.  Fails at the bound."""
+    epoch_freq = getattr(pool.policy, "epoch_freq", 1)
+    rounds = 2 * epoch_freq if rounds is None else rounds
+    for n in range(rounds):
+        for e in range(pool.n_engines):
+            pool.start_step(e)
+            pool.end_step(e)
+        pool.policy.flush()
+        if not pool.retired_blocks:
+            return n + 1
+    raise AssertionError(f"{pool.retired_blocks} blocks still retired "
+                         f"after {rounds} rounds of empty steps and flushes")
+
+
 @pytest.mark.parametrize("smr,backend", [
     ("HazardPtrPOP", "gen"), ("HazardEraPOP", "gen"), ("EpochPOP", "gen"),
     ("HP", "gen"), ("HE", "gen"), ("EBR", "gen"), ("HazardPtrPOP", "vec")])
@@ -117,17 +140,98 @@ def test_simulated_scheme_serving_matches_reference_tokens(smr, backend):
     assert eng.pool.policy.scheme_name == smr
     assert _run(eng, prompts) == want
     pool = eng.pool
-    # an epoch scheme (EBR) frees only after every thread has announced a
-    # later epoch: give each engine slot one empty step before the flush,
-    # so what it frees does not hang on how the decode threads interleaved
-    for e in range(pool.n_engines):
-        pool.start_step(e)
-        pool.end_step(e)
-    pool.policy.flush()
+    # an epoch scheme (EBR) frees only what every other slot can be seen to
+    # have passed: drive the idle slots until nothing is left retired, so
+    # what the flush frees does not hang on how the decode threads
+    # interleaved (``_drain``)
+    _drain(pool)
     assert pool.stats.freed > 0
     assert eng.kv_store.poisons == pool.stats.freed
     assert pool.check_no_leaks()
     assert pool.policy.drives > 0 and pool.policy.host_s > 0
+
+
+def test_simulated_ebr_frees_late_after_stop():
+    """The state ``[EBR-gen]`` stopped in when it freed nothing, built
+    step by step, with no thread: both decode slots retire their blocks
+    at the same epoch, within a few simulated cycles of each other.  One
+    empty step a slot and a flush free nothing: each slot's quiescent
+    store sits in its simulated store buffer, unseen by the other slot's
+    flush, which reads the epoch the other last announced -- the retires'
+    own -- and no step bumped the epoch past it (every ``epoch_freq``-th
+    step of a thread does).  The reference's EBR does the same: a lag,
+    not a leak.  Driven on, the slots free every retired block within the
+    drain's bound, each freed page poisoned."""
+    params = init_params(CFG, torch.Generator().manual_seed(5), device="cpu")
+    eng = ServeEngine(CFG, params, device="cpu", smr="EBR",
+                      sim_backend="gen", n_engines=2, **ENGINE_KW)
+    pool = eng.pool
+    assert pool.n_engines == 3 and pool.policy.epoch_freq == 4
+    held = {}
+    for e in (0, 1):
+        pool.start_step(e)
+        held[e] = pool.allocate(e, 3)
+        pool.end_step(e)
+    for e in (0, 1):
+        pool.start_step(e)
+        pool.retire(e, held[e])
+        pool.end_step(e)
+    for e in range(pool.n_engines):
+        pool.start_step(e)
+        pool.end_step(e)
+    pool.policy.flush()
+    assert pool.stats.freed == 0 and pool.retired_blocks == 6
+    rounds = _drain(pool)
+    assert rounds <= 2 * pool.policy.epoch_freq
+    assert pool.stats.freed == 6 and pool.retired_blocks == 0
+    assert eng.kv_store.poisons == 6 and pool.check_no_leaks()
+
+
+def test_stop_raises_while_a_decode_thread_is_held(monkeypatch):
+    """``stop()`` returns only once every actor's thread has ended: with
+    decode thread 0 held inside its step (``_admit`` waits on an event),
+    it raises, naming the thread, where it used to return after its join
+    timed out and leave the thread to announce and retire beside the
+    caller's flush.  Released, the thread closes its step (the slot's
+    last ``start_step`` has its ``end_step``) and ends, and ``stop()``
+    returns."""
+    import threading
+    from repro_torch.serve import worker
+    from repro_torch.serve.worker import EngineWorker
+    params = init_params(CFG, torch.Generator().manual_seed(5), device="cpu")
+    eng = ServeEngine(CFG, params, device="cpu", smr="EBR",
+                      sim_backend="gen", n_engines=2, **ENGINE_KW)
+    entered, release = threading.Event(), threading.Event()
+    admit = EngineWorker._admit
+
+    def held_admit(self):
+        if self.engine_id == 0 and not release.is_set():
+            entered.set()
+            release.wait(60)
+        return admit(self)
+    monkeypatch.setattr(EngineWorker, "_admit", held_admit)
+    monkeypatch.setattr(worker, "STOP_TIMEOUT_S", 0.5, raising=False)
+    try:
+        eng.start()
+        assert entered.wait(60)
+        with pytest.raises(RuntimeError, match="engine-0"):
+            eng.stop()
+        w0 = eng.workers[0]
+        assert w0._thread.is_alive()
+        assert not any(w._thread.is_alive() for w in eng.workers[1:])
+        release.set()
+        eng.stop()
+        assert not w0._thread.is_alive() and eng.error is None
+    finally:
+        release.set()
+    from repro_torch.core.smr.base import MAX_ERA
+    sim, smr = eng.pool.policy.sim, eng.pool.policy.smr
+    # every decode slot's last step closed: the slot reads quiescent to
+    # its own thread (from its store buffer, or from memory once drained)
+    for e in range(eng.n_engines):
+        fwd = sim.mem.forwarded(e, smr.reserved + e)
+        assert (sim.mem.cells[smr.reserved + e] if fwd is None
+                else fwd) == MAX_ERA, e
 
 
 @pytest.mark.parametrize("smr,trips", [("unsafe", True),
