@@ -381,12 +381,17 @@ DEV = "cuda"
 
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:118",
+    # the attention launch with the decode / chunk write folded in: it
+    # takes the scatter's place on the serving path
+    "paged_attention+write": "src/repro/kernels/paged_attention.py:176",
     "paged_scatter": "src/repro/kernels/paged_attention.py:176",
     "flash_attention": "src/repro/kernels/flash_attention.py:94",
     "linear_scan": "src/repro/kernels/linear_scan.py:81",
 }
-SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name.split('+')[0]}.cu"
            for name in REPLACES}
+#: the paged serving path's launch counts
+PAGED_KERNELS = ("paged_attention", "paged_attention+write", "paged_scatter")
 
 
 def log(msg: str) -> None:
@@ -588,11 +593,13 @@ def _decode_rows(rng, lengths):
     return blocks
 
 
-def _att_bound_ms(table, lengths, elem: int, B: int, dtype):
+def _att_bound_ms(table, lengths, elem: int, B: int, dtype, T: int = 0):
     """Least time for the work these inputs need: the live K/V token rows
     (each distinct (page, slot) once), q and out, over HBM bandwidth; vs
     4 * G * D flops per (row, kv head, live position) at the pages' type's
-    peak rate."""
+    peak rate.  With ``T`` new rows written in the same launch: each live
+    slot still once (read from the pool, or written there), the new rows
+    read once, and their index and the rows' new_lo / new_base."""
     t = table.cpu().numpy()
     n = lengths.cpu().numpy()
     live = set()
@@ -605,6 +612,7 @@ def _att_bound_ms(table, lengths, elem: int, B: int, dtype):
                 pairs += 1
     bytes_ = (2 * len(live) * HKV * D * elem + 2 * B * H * D * 4
               + t.size * 4 + n.size * 4)
+    bytes_ += 2 * T * HKV * D * elem + (2 * T + 2 * B) * 4 if T else 0
     return bound_ms(bytes_, 4 * pairs * H * D, dtype)
 
 
@@ -763,15 +771,136 @@ def check_scatter(rng, dtype, L=32):
         vp[5].index_put_((bt, st), vv1)
 
     lib = cuda_ms(library)
+    dev, _ = device_ms(lambda: pa.paged_scatter_indexed(kp, vp, index, kv1,
+                                                        vv1, layer=5),
+                       ("paged_scatter_kernel",))
     bound = (2 * 2 * T * HKV * D * kp.element_size() + 2 * T * 4) \
         / HBM_BYTES_PER_S * 1e3
     log(f"  paged_scatter {str(dtype)[6:]} T={T} one layer: prepared index "
-        f"{ms:.4f} ms, numpy indices {numpy_ms:.4f} ms, plain {plain:.4f} "
-        f"ms, index_put_ x2 {lib:.4f} ms, bound {bound:.6f} ms; prepared "
-        f"no slower than index_put_ x2: {ms <= lib}")
+        f"{ms:.4f} ms (event time of a wrapper call), device {dev:.4f} ms a "
+        f"launch (profiler), numpy indices {numpy_ms:.4f} ms, plain "
+        f"{plain:.4f} ms, index_put_ x2 {lib:.4f} ms, bound {bound:.6f} ms; "
+        f"prepared no slower than index_put_ x2: {ms <= lib}")
     del kp, vp, kr, vr
     torch.cuda.empty_cache()
-    return 0.0, (ms, plain, bound, lib)
+    return 0.0, (ms, plain, bound, lib, dev)
+
+
+def _fused_cases(rng):
+    """The fused write's cases: name -> (blocks per row, stored lengths
+    before the write, new_lo, new_base, pages that are fresh).  Decode
+    B=8: the timed decode case's lengths with one token each (rows 4-7
+    share a 4-page prefix; row 2's token opens a fresh page); the
+    prefill chunk: 32 rows over one table, positions 96..127; long
+    context: LONG_ROWS with the last token of each row new."""
+    att = [1, 2, 17, 64, 100, 129, 200, 250]
+    own = _decode_rows(rng, [a - 64 if b >= 4 else a
+                             for b, a in enumerate(att)] + [64])
+    prefix = own.pop()
+    blocks = [bl if b < 4 else prefix + bl for b, bl in enumerate(own)]
+    stored = [a - 1 for a in att]
+    chunk_blocks = _decode_rows(rng, [128])[0]
+    long_stored = [n - 1 for n in LONG_ROWS]
+    return {
+        "decode": (blocks, stored, stored, list(range(8)), [blocks[2][1]]),
+        "prefill_chunk": ([chunk_blocks] * 32, list(range(96, 128)),
+                          [96] * 32, [0] * 32, []),
+        "long_context": (_decode_rows(rng, LONG_ROWS), long_stored,
+                         long_stored, list(range(8)), []),
+    }
+
+
+def check_fused(rng, dtype):
+    """The attention launch with the write folded in against the
+    standalone scatter followed by the attention alone (two launches),
+    bit-equal for pools and outputs, and within ATT_TOL of its plain
+    version, at decode B=8, chunk B=32 and long context; then each timed
+    beside the pair and the attention alone on the same inputs (event
+    time of a wrapper call, device time a launch from the profiler)."""
+    kp, vp = _pages(rng, dtype)
+    scale = 1.0 / math.sqrt(D)
+    tol = ATT_TOL[dtype]
+    elem = kp.element_size()
+    worst, times = 0.0, {}
+    for name, (blocks, stored, lo, base, fresh) in _fused_cases(rng).items():
+        if fresh:       # a freshly allocated page, as on_alloc leaves it
+            kp[fresh] = 0
+            vp[fresh] = 0
+        B = len(blocks)
+        if name == "prefill_chunk":
+            pos = np.asarray(stored)
+            blk = np.asarray(blocks[0])[pos // PAGE]
+        else:
+            blk = [bl[n // PAGE] for bl, n in zip(blocks, stored)]
+        slot = np.asarray(stored) % PAGE
+        att = [n + 1 for n in stored]
+        table, lens = build_block_table(blocks, att, page=PAGE, device=DEV)
+        wi = pa.write_index(blk, slot, lo, base, num_blocks=POOL_PAGES,
+                            page=PAGE, device=DEV)
+        T = wi.index.T
+        q = torch.from_numpy(rng.standard_normal((B, H, D),
+                                                 np.float32)).to(DEV)
+        kn, vn = (torch.from_numpy(rng.standard_normal((T, HKV, D),
+                                                       np.float32))
+                  .to(DEV, dtype) for _ in range(2))
+        write = (wi.index, kn, vn, wi.new_lo, wi.new_base)
+        kf, vf, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        got = pa.paged_attention(q, kf, vf, table, lens, scale=scale,
+                                 write=write)
+
+        def pair():
+            pa.paged_scatter_indexed(k2[None], v2[None], wi.index, kn, vn,
+                                     layer=0)
+            return pa.paged_attention(q, k2, v2, table, lens, scale=scale)
+
+        two = pair()
+        kr, vr = kp.clone(), vp.clone()
+        want = ref.paged_attention_write_ref(q, kr, vr, table, lens,
+                                             wi.index.idx[0],
+                                             wi.index.idx[1], kn, vn,
+                                             scale=scale)
+        torch.cuda.synchronize()
+        same = (torch.equal(got, two) and torch.equal(kf, k2)
+                and torch.equal(vf, v2))
+        err = float((got - want).abs().max())
+        pools_plain = torch.equal(kf, kr) and torch.equal(vf, vr)
+        log(f"  paged_attention+write {str(dtype)[6:]} {name} B={B} T={T}: "
+            f"vs standalone scatter + attention: pools and output bit-equal "
+            f"{same}; vs plain max |err| {err:.3e} (tol {tol:g}), pools "
+            f"bit-equal {pools_plain}")
+        if not (same and pools_plain and err <= tol):
+            raise AssertionError(f"paged_attention+write {name} {dtype}: "
+                                 f"bit-equal {same}, pools {pools_plain}, "
+                                 f"err {err}")
+        worst = max(worst, err)
+
+        fused = lambda: pa.paged_attention(q, kf, vf, table, lens,
+                                           scale=scale, write=write)
+        alone = lambda: pa.paged_attention(q, kf, vf, table, lens,
+                                           scale=scale)
+        ms, pair_ms, att_ms = cuda_ms(fused), cuda_ms(pair), cuda_ms(alone)
+        dev, _ = device_ms(fused, ("paged_attention_kernel",))
+        pair_dev, per = device_ms(pair, ("paged_attention_kernel",
+                                         "paged_scatter_kernel"))
+        att_dev, _ = device_ms(alone, ("paged_attention_kernel",))
+        plain = cuda_ms(lambda: ref.paged_attention_write_ref(
+            q, kr, vr, table, lens, wi.index.idx[0], wi.index.idx[1], kn,
+            vn, scale=scale), *((10, 2) if name == "long_context" else ()))
+        bound, by = _att_bound_ms(table, lens, elem, B, dtype, T)
+        split = ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}"
+                          for k, v in sorted(per.items()))
+        times[name] = (ms, plain, bound, by, dev, att_ms, att_dev, pair_ms,
+                       pair_dev)
+        log(f"  paged_attention+write {str(dtype)[6:]} {name} B={B}: fused "
+            f"{ms:.4f} ms (event time of a wrapper call), device {dev:.4f} "
+            f"ms a launch (profiler); attention alone {att_ms:.4f} / "
+            f"{att_dev:.4f} ms; standalone scatter + attention "
+            f"{pair_ms:.4f} ms, device {pair_dev:.4f} ms ({split}); plain "
+            f"{plain:.4f} ms; bound {bound:.6f} ms ({by})")
+        del kf, vf, k2, v2, kr, vr
+    del kp, vp
+    torch.cuda.empty_cache()
+    return worst, times
 
 
 FLASH_SHAPES = {
@@ -1043,6 +1172,7 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         results[("paged_attention", dtype)] = check_attention(rng, dtype)
         results[("paged_scatter", dtype)] = check_scatter(rng, dtype)
+        results[("paged_attention+write", dtype)] = check_fused(rng, dtype)
         results[("flash_attention", dtype)] = check_flash(g, dtype)
         results[("linear_scan", dtype)] = check_scan(g, dtype)
     torch.cuda.empty_cache()
@@ -1115,8 +1245,13 @@ def _serve_checks(eng, reqs, launches, want_tokens, leaky: bool = False):
             (pool.stats.freed == 0) if leaky else (pool.stats.freed > 0),
         "bytes_h2d_per_step == 0":
             eng.kv_copy_stats()["bytes_h2d_per_step"] == 0,
-        "paged_attention launched": launches["paged_attention"] > 0,
-        "paged_scatter launched": launches["paged_scatter"] > 0,
+        # device storage: every decode / chunk write goes into its layer's
+        # attention launch
+        "paged_attention+write launched":
+            launches["paged_attention+write"] > 0,
+        "no standalone paged_scatter launch": launches["paged_scatter"] == 0,
+        "no paged_attention launch without its write":
+            launches["paged_attention"] == 0,
         "logits finite, below poison": (math.isfinite(peak)
                                         and peak < PagedKVStore.POISON),
     }
@@ -1241,18 +1376,22 @@ def _same_tokens(cfg, params, base, got):
 def _runtime_checks(eng, reqs, launches, max_new: int, host: bool = False):
     """The serve phase's checks of a run (every request ``max_new``
     tokens, no engine error, so no use-after-free; after eviction and a
-    flush no leaks and poisons == frees; both kernels launched).  Host
+    flush no leaks and poisons == frees; the fused launch alone).  Host
     storage uploads KV bytes every step instead of none, and its pages,
-    in host memory, are written there: the scatter kernel, which writes
-    device pages, is not launched."""
+    in host memory, are written there: the attention launches alone, and
+    neither the scatter kernel nor the fused write, which write device
+    pages, is launched."""
     checks = _serve_checks(eng, reqs, launches, [max_new] * len(reqs))
     if host:
-        del checks["bytes_h2d_per_step == 0"]
-        checks.pop("paged_scatter launched", None)
+        for k in ("bytes_h2d_per_step == 0", "paged_attention+write launched",
+                  "no paged_attention launch without its write"):
+            del checks[k]
         checks["bytes_h2d_per_step > 0"] = \
             eng.kv_copy_stats()["bytes_h2d_per_step"] > 0
-        checks["pages written in host memory"] = \
-            launches["paged_scatter"] == 0
+        checks["paged_attention launched"] = launches["paged_attention"] > 0
+        checks["pages written in host memory"] = (
+            launches["paged_scatter"] == launches["paged_attention+write"]
+            == 0)
     return checks
 
 
@@ -1288,7 +1427,7 @@ def _runtime_runs(cfg, params, card: str, long_len: int,
     long, short = _runtime_prompts(np.random.default_rng(SEED + 2),
                                    cfg.vocab, long_len)
     seq = long_len + 64
-    total = {"paged_attention": 0, "paged_scatter": 0}
+    total = dict.fromkeys(PAGED_KERNELS, 0)
 
     def add(launches):
         for k in total:
@@ -1444,7 +1583,7 @@ def phase_stalled_reader(cfg, params, card: str,
     Returns the paged kernels' launches over the runs."""
     prompts = _prompts(np.random.default_rng(SEED + 1), cfg.vocab)
     max_new = list(max_new)
-    total = {"paged_attention": 0, "paged_scatter": 0}
+    total = dict.fromkeys(PAGED_KERNELS, 0)
     for scheme, backend in STALL_RUNS:
         pool = BlockPool(POOL_PAGES, n_engines=4, reclaim_threshold=4,
                          pressure_factor=1, ping_timeout_s=1.0,
@@ -1536,7 +1675,7 @@ def _runtime_system(card: str, out: dict, ckpt_dir: str) -> dict:
                for n in (3, 7, 11)]
     prompts += [rng.integers(1, cfg.vocab, int(n)).tolist()
                 for n in (9, 40, 77)]
-    total = {"paged_attention": 0, "paged_scatter": 0}
+    total = dict.fromkeys(PAGED_KERNELS, 0)
     runs = []
     for p in (out["params"], params):
         eng = _engine(cfg, p)
@@ -1667,9 +1806,9 @@ def smr_serve_run(cfg, params, scheme: str, backend: str, card: str,
         f"p99 {1e3 * lat.get('p99', float('nan')):.2f} ms; decode steps "
         f"{eng.steps}; freed {st.freed}, pings {st.pings}, publishes "
         f"{st.publishes}, max ping stall {1e3 * st.max_ping_stall_s:.3f} "
-        f"ms; {_policy_ms_per_step(eng)}; launches paged_attention "
-        f"{launches['paged_attention']} paged_scatter "
-        f"{launches['paged_scatter']}; peak device memory "
+        f"ms; {_policy_ms_per_step(eng)}; launches "
+        f"{', '.join(f'{k} {launches[k]}' for k in PAGED_KERNELS)}; peak "
+        f"device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checks "
         f"passed; use-after-free: none; {card}")
 
@@ -1836,12 +1975,19 @@ def phase_profile(cfg, params, max_new: int = 16, top: int = 6):
     eng.stop()
     if eng.error is not None:
         raise AssertionError(f"engine failed: {eng.error!r}")
-    forwards = build.launch_counts["paged_attention"] / cfg.n_layers
+    n = build.launch_counts
+    forwards = (n["paged_attention"] + n["paged_attention+write"]) \
+        / cfg.n_layers
     report_profile(prof, wall, forwards, cfg.n_layers, top)
+    fused, alone = n["paged_attention+write"], n["paged_scatter"]
     log(f"  profile scatter index uploads per forward: "
-        f"{eng.kv_store.index_builds / forwards:.2f} (one per forward; "
-        f"{build.launch_counts['paged_scatter'] / forwards:.1f} scatter "
-        f"launches per forward)")
+        f"{eng.kv_store.index_builds / forwards:.2f} (one per forward); "
+        f"launches per forward: fused attention + write "
+        f"{fused / forwards:.1f}, standalone scatter {alone / forwards:.1f},"
+        f" attention alone {n['paged_attention'] / forwards:.1f} (device "
+        f"storage; one fused launch a layer)")
+    if alone or n["paged_attention"] or not fused:
+        raise AssertionError(f"profile: launches {dict(n)}")
 
 
 def report_profile(prof, wall: float, forwards: float, n_layers: int,
@@ -1955,23 +2101,32 @@ def phase_prefill_kv(cfg, params, n_prompt: int = 512, chunk: int = 32):
     prompt = rng.integers(1, cfg.vocab, n_prompt).tolist()
     blocks = list(range(1, 1 + n_prompt // PAGE))
     pages = {}
+    total = dict.fromkeys(PAGED_KERNELS, 0)
     for dtype in ("float32", "bfloat16"):
         c = cfg.scaled(dtype=dtype)
         full = PagedKVStore(c, len(blocks) + 1, PAGE, storage="device",
                             device=DEV)
         build.reset_launch_counts()
         k, v = prefill_kv(params, c, prompt)
-        full.write_prefill(blocks, k, v)
-        flash = build.launch_counts.get("flash_attention", 0)
+        full.write_prefill(blocks, k, v)      # the standalone scatter's path
         chunked = PagedKVStore(c, len(blocks) + 1, PAGE, storage="device",
                                device=DEV)
         for _ in prefill_kv_chunked(params, c, chunked, blocks, prompt,
                                     chunk):
             pass
         torch.cuda.synchronize()
+        counts = dict(build.launch_counts)
+        for name in total:
+            total[name] += counts[name]
+        want = {"paged_scatter": 1, "paged_attention": 0,
+                "paged_attention+write": cfg.n_layers * -(-n_prompt // chunk)}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"prefill_kv {dtype}: launches {counts}, "
+                                 f"want {want}")
         pages[dtype] = (torch.stack([full.k[:, blocks], full.v[:, blocks]]),
                         torch.stack([chunked.k[:, blocks],
-                                     chunked.v[:, blocks]]), flash)
+                                     chunked.v[:, blocks]]),
+                        counts["flash_attention"])
         del full, chunked, k, v
     own = within(pages["bfloat16"][1], pages["float32"][1], 0.0)[0]
     for dtype, tol in (("float32", 2e-4),
@@ -1984,6 +2139,9 @@ def phase_prefill_kv(cfg, params, n_prompt: int = 512, chunk: int = 32):
         if not ok or flash != cfg.n_layers:
             raise AssertionError(f"prefill_kv {dtype}: {err}, {flash} "
                                  f"flash launches")
+    log(f"prefill_kv launches: {total} (the full-sequence prefill's one "
+        f"all-layer scatter a dtype; the chunked path's fused launches)")
+    return total
 
 
 # ----------------------------------------------------------------------------
@@ -5072,6 +5230,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--structures"]:
         phase_structures()      # the process start_structures starts
         return 0
+    if sys.argv[1:2] == ["--kernels"]:
+        # the card, build and kernel phases alone, for iterating on a
+        # kernel (prints no result)
+        phase_card()
+        phase_build()
+        phase_kernels()
+        return 0
     if sys.argv[1:2] == ["--dist"]:
         # the dist phase alone, for iterating on it (prints no result)
         card = phase_card()
@@ -5144,7 +5309,9 @@ def main() -> int:
     phase_fleet_replay(cfg, params, card)
     phase_profile(cfg, params)
     phase_slice(cfg, params)
-    phase_prefill_kv(cfg, params)
+    # the standalone scatter's path: the full-sequence prefill's write
+    for name, n in phase_prefill_kv(cfg, params).items():
+        launches[name] += n
     del params
     free_cuda()
     done("fleet replay, profile, slice, prefill_kv")
@@ -5203,8 +5370,11 @@ def main() -> int:
         if name == "paged_attention":
             ms, plain, bound, by, _ = t_bf16["decode"]
             lib = None
+        elif name == "paged_attention+write":
+            ms, plain, bound, by = t_bf16["decode"][:4]
+            lib = None
         elif name == "paged_scatter":
-            ms, plain, bound, lib = t_bf16
+            ms, plain, bound, lib, _ = t_bf16
             by = "bytes"
         elif name == "flash_attention":
             ms, plain, bound, by, lib = t_bf16["deepseek MLA"]

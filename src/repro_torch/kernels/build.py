@@ -47,8 +47,11 @@ _entries: Dict[str, object] = {}
 #: registers, shared memory and spills of every kernel instantiation)
 build_logs: Dict[str, str] = {}
 
-#: launches of each kernel since the last :func:`reset_launch_counts`
-launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+#: launches of each kernel since the last :func:`reset_launch_counts`;
+#: the paged attention launches that fold in the page write count as
+#: ``paged_attention+write``, apart from the attention alone
+LAUNCHES = KERNELS + ("paged_attention+write",)
+launch_counts: Dict[str, int] = {name: 0 for name in LAUNCHES}
 _count_lock = threading.Lock()
 
 
@@ -169,9 +172,12 @@ def vjp(name: str, plain, ins, g: torch.Tensor):
                      else None for t in ins)
 
 
-def check(cond: bool, msg: str) -> None:
+def check(cond: bool, msg: str, *args) -> None:
+    """Raise ``ValueError(msg)`` unless ``cond``; with ``args``, ``msg``
+    is a ``str.format`` pattern filled only then (a launch's checks run
+    on every call: formatting costs microseconds)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)
 
 
 def raise_on(err: int, name: str) -> None:

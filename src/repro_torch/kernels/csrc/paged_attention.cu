@@ -45,11 +45,35 @@
 // Not yet: several rows of a chunked prefill sharing one page load;
 // tensor cores (the work is far below the card's flop line).
 //
+// The fused write (the page scatter of paged_scatter_pallas,
+// src/repro/kernels/paged_attention.py:176, folded into this launch).  A
+// decode step and a prefill chunk write each layer's new K/V rows into the
+// pages directly before that layer's attention reads them, and the write
+// is a few KB: as a launch of its own it costs its launch, not its bytes.
+// With k_new != nullptr the launch takes T new rows (T, Hkv, D) in the
+// pages' dtype, their destinations (blk[t], slot[t]), and two values a
+// row: new_lo[b], the first position of row b that is a new row, and
+// new_base[b], the new row that holds it.  Then:
+//   * read: a slice row at position p >= new_lo[b] is loaded by cp.async
+//     from new row new_base[b] + p - new_lo[b] (where that lies in [0, T))
+//     instead of from the pool: the same bytes the pool would hold after
+//     the scatter, in the same order, so scores, fold and output are those
+//     of scatter-then-attend, bit for bit;
+//   * write: block (b, h, 0) stores head h of new rows b, b + B, ... to
+//     pages[blk, slot], in 16-byte vectors, once.  In both callers new row
+//     b is row b's own token (decode: new_lo = lens, new_base = b; chunk:
+//     new_lo = start, new_base = 0, row i the chunk's position start + i).
+//     The caller's contract is that no row reads a written slot from the
+//     pool (a decode row's tail slot is its own; chunk rows read positions
+//     >= start from the new rows), so nothing in the launch orders a
+//     write before a read.
+//
 // The launch goes on the caller's stream, allocates nothing (scratch and
 // counters come from the wrapper) and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -131,15 +155,21 @@ struct Item {
 template <typename T, int NP, int DJ>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const float* __restrict__ q,          // (B, H, D) f32
-    const T* __restrict__ k_pages,        // (P, page, Hkv, D)
-    const T* __restrict__ v_pages,        // (P, page, Hkv, D)
+    T* k_pages,                           // (P, page, Hkv, D), written at
+    T* v_pages,                           //   the new rows' slots
     const int32_t* __restrict__ table,    // (B, max_pages), -1 = dead
     const int32_t* __restrict__ lengths,  // (B,)
     float* __restrict__ out,              // (B, H, D) f32
     float* __restrict__ part,             // (B, Hkv, max_units, 2G + G*D)
     int* __restrict__ counters,           // (B, Hkv), zero between launches
-    int H, int Hkv, int D, int P, int page, int max_pages, int max_units,
-    float scale, float softcap) {
+    const T* __restrict__ k_new,          // (T, Hkv, D), or null: no write
+    const T* __restrict__ v_new,          // (T, Hkv, D)
+    const int32_t* __restrict__ blk,      // (T,) destination page
+    const int32_t* __restrict__ slot,     // (T,) destination slot
+    const int32_t* __restrict__ new_lo,   // (B,) first new position
+    const int32_t* __restrict__ new_base, // (B,) its new row
+    int T_new, int H, int Hkv, int D, int P, int page, int max_pages,
+    int max_units, float scale, float softcap) {
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int z = blockIdx.z;
@@ -170,6 +200,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   __shared__ int last_s;
 
   const int len = lengths[b];
+  // positions >= lo come from the new rows, from row nb on (none: lo past
+  // every position)
+  const int lo = k_new != nullptr ? new_lo[b] : INT_MAX;
+  const int nb = k_new != nullptr ? new_base[b] : 0;
   const Units un = row_units(len, page, max_pages);
   const int per_split = (un.n + n_splits - 1) / n_splits;
   const int u_end = min(un.n, (z + 1) * per_split);
@@ -212,13 +246,26 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     T* vs = ks + buf;
     const size_t base =
         (((size_t)max(it.pid, 0) * page + it.sl * kSlice) * Hkv + h) * D;
+    const int p0 = it.pi * page + it.sl * kSlice;  // row 0's position
     for (int i = lane; i < kSlice * C; i += 32) {
       const int r = i / C;
       const int c = i - r * C;
       const bool ok = r < n;
-      const size_t off = ok ? base + r * row_ld + c * E : 0;
-      cp_async_16(smem_u32(ks + r * rs + c * E), k_pages + off, ok ? 16 : 0);
-      cp_async_16(smem_u32(vs + r * rs + c * E), v_pages + off, ok ? 16 : 0);
+      const T* ksrc = k_pages;
+      const T* vsrc = v_pages;
+      size_t off = 0;
+      if (ok) {
+        const int t = p0 + r >= lo ? nb + (p0 + r - lo) : -1;
+        if (t >= 0 && t < T_new) {  // a new row: where the scatter's
+          ksrc = k_new;             // bytes come from
+          vsrc = v_new;
+          off = ((size_t)t * Hkv + h) * D + c * E;
+        } else {
+          off = base + r * row_ld + c * E;
+        }
+      }
+      cp_async_16(smem_u32(ks + r * rs + c * E), ksrc + off, ok ? 16 : 0);
+      cp_async_16(smem_u32(vs + r * rs + c * E), vsrc + off, ok ? 16 : 0);
     }
   };
 
@@ -231,6 +278,23 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   Item cur = first_in(z * per_split + warp);
   if (cur.ok) issue(cur, 0);
   cp_async_commit();
+  // the fused write: head h of new rows b, b + B, ... into the pool, by
+  // block (b, h, 0), K and V in 16-byte vectors (no reader of these slots
+  // in this launch: see the header)
+  if (k_new != nullptr && z == 0) {
+    for (int t = b; t < T_new; t += gridDim.x) {
+      const size_t src = ((size_t)t * Hkv + h) * D;
+      const size_t dst = (((size_t)blk[t] * page + slot[t]) * Hkv + h) * D;
+      for (int i = tid; i < 2 * C; i += kThreads) {
+        const bool is_v = i >= C;
+        const int c = is_v ? i - C : i;
+        const T* from = is_v ? v_new : k_new;
+        T* to = is_v ? v_pages : k_pages;
+        *reinterpret_cast<uint4*>(to + dst + c * E) =
+            *reinterpret_cast<const uint4*>(from + src + c * E);
+      }
+    }
+  }
   // the query rows while the first slice is in flight
   for (int i = tid; i < Gp * D; i += kThreads)
     q_s[i] = i < GD ? q[qoff + i] : 0.f;
@@ -490,12 +554,23 @@ size_t smem_bytes(int G, int D) {
          sizeof(float) * (2 + kMaxUnits) * (size_t)G;
 }
 
+// The new rows of a fused write (all null: no write).
+struct NewRows {
+  const void* k;
+  const void* v;
+  const void* blk;
+  const void* slot;
+  const void* lo;
+  const void* base;
+  int rows;
+};
+
 template <typename T, int NP, int DJ>
-int launch_np(const void* q, const void* k, const void* v, const void* table,
+int launch_np(const void* q, void* k, void* v, const void* table,
               const void* lengths, void* out, void* part, void* counters,
-              int B, int H, int Hkv, int D, int P, int page, int max_pages,
-              int max_units, int n_splits, float scale, float softcap,
-              cudaStream_t stream) {
+              const NewRows& nr, int B, int H, int Hkv, int D, int P,
+              int page, int max_pages, int max_units, int n_splits,
+              float scale, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(H / Hkv, D);
   if (smem > 48 * 1024) {  // above the default limit only: a host call
     cudaError_t err = cudaFuncSetAttribute(
@@ -505,30 +580,35 @@ int launch_np(const void* q, const void* k, const void* v, const void* table,
   }
   dim3 grid(B, Hkv, n_splits);
   paged_attention_kernel<T, NP, DJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(table),
+      static_cast<const float*>(q), static_cast<T*>(k), static_cast<T*>(v),
+      static_cast<const int32_t*>(table),
       static_cast<const int32_t*>(lengths), static_cast<float*>(out),
-      static_cast<float*>(part), static_cast<int*>(counters), H, Hkv, D, P,
-      page, max_pages, max_units, scale, softcap);
+      static_cast<float*>(part), static_cast<int*>(counters),
+      static_cast<const T*>(nr.k), static_cast<const T*>(nr.v),
+      static_cast<const int32_t*>(nr.blk),
+      static_cast<const int32_t*>(nr.slot),
+      static_cast<const int32_t*>(nr.lo),
+      static_cast<const int32_t*>(nr.base), nr.rows, H, Hkv, D, P, page,
+      max_pages, max_units, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* table,
-           const void* lengths, void* out, void* part, void* counters, int B,
-           int H, int Hkv, int D, int P, int page, int max_pages,
-           int max_units, int n_splits, float scale, float softcap,
-           cudaStream_t stream) {
+int launch(const void* q, void* k, void* v, const void* table,
+           const void* lengths, void* out, void* part, void* counters,
+           const NewRows& nr, int B, int H, int Hkv, int D, int P, int page,
+           int max_pages, int max_units, int n_splits, float scale,
+           float softcap, cudaStream_t stream) {
   const int np = (H / Hkv * D + 63) / 64;
   const bool d128 = D == 128;
 #define PA_LAUNCH(N)                                                          \
   if (np <= N)                                                                \
     return d128 ? launch_np<T, N, 2>(q, k, v, table, lengths, out, part,      \
-                                     counters, B, H, Hkv, D, P, page,         \
+                                     counters, nr, B, H, Hkv, D, P, page,     \
                                      max_pages, max_units, n_splits, scale,   \
                                      softcap, stream)                         \
                 : launch_np<T, N, 0>(q, k, v, table, lengths, out, part,      \
-                                     counters, B, H, Hkv, D, P, page,         \
+                                     counters, nr, B, H, Hkv, D, P, page,     \
                                      max_pages, max_units, n_splits, scale,   \
                                      softcap, stream);
   PA_LAUNCH(2)
@@ -546,25 +626,34 @@ int launch(const void* q, const void* k, const void* v, const void* table,
 
 // dtype: 0 = float32 pages, 1 = bfloat16 pages.  q and out are float32.
 // part: (B, Hkv, max_units, 2G + G*D) f32 scratch; counters: (B, Hkv)
-// int32, all zero (the kernel leaves them zero).
-extern "C" int paged_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, const void* table,
-                                      const void* lengths, void* out,
-                                      void* part, void* counters, int B,
-                                      int H, int Hkv, int D, int P, int page,
-                                      int max_pages, int max_units,
-                                      int n_splits, float scale,
-                                      float softcap, void* stream) {
+// int32, all zero (the kernel leaves them zero).  k_new, v_new: (T_new,
+// Hkv, D) in the pages' dtype, written at (blk, slot) before they are read
+// (see the header), or null for attention alone; blk, slot: (T_new,)
+// int32; new_lo, new_base: (B,) int32.
+extern "C" int paged_attention_launch(
+    int dtype, const void* q, void* k, void* v, const void* table,
+    const void* lengths, void* out, void* part, void* counters,
+    const void* k_new, const void* v_new, const void* blk, const void* slot,
+    const void* new_lo, const void* new_base, int T_new, int B, int H,
+    int Hkv, int D, int P, int page, int max_pages, int max_units,
+    int n_splits, float scale, float softcap, void* stream) {
   if (B == 0) return 0;
+  if ((k_new == nullptr) != (v_new == nullptr) ||
+      (k_new != nullptr && (blk == nullptr || slot == nullptr ||
+                            new_lo == nullptr || new_base == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const NewRows nr{k_new, v_new, blk, slot, new_lo, new_base,
+                   k_new != nullptr ? T_new : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, table, lengths, out, part, counters, B, H,
-                         Hkv, D, P, page, max_pages, max_units, n_splits,
+    return launch<float>(q, k, v, table, lengths, out, part, counters, nr, B,
+                         H, Hkv, D, P, page, max_pages, max_units, n_splits,
                          scale, softcap, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, table, lengths, out, part,
-                                 counters, B, H, Hkv, D, P, page, max_pages,
-                                 max_units, n_splits, scale, softcap, s);
+                                 counters, nr, B, H, Hkv, D, P, page,
+                                 max_pages, max_units, n_splits, scale,
+                                 softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,6 +15,15 @@
 // bytes, so the result is bit-identical to index_put_ for any element
 // type; the caller casts the values to the pages' dtype first.
 //
+// Where it runs: every write that no attention follows -- write_prefill
+// with layer=None after a full-sequence prefill, append_token(s), and the
+// plain paths of the tests.  A decode step's and a prefill chunk's
+// per-layer write on device storage is not this kernel's: it is folded
+// into that layer's paged attention launch (csrc/paged_attention.cu), which
+// removes the launch.  No further device change serves what stays here:
+// the copy is already coalesced 16-byte vectors, a few KB a token, and
+// its cost on the card is the launch, not the bytes.
+//
 // The wrapper checks on the host what the kernel relies on: contiguous
 // tensors, 16-byte aligned base pointers, a row size that is a multiple of
 // 16 bytes, block ids in [0, P) and slots in [0, page).  The launch goes

@@ -45,10 +45,20 @@ def resolve_impl(impl: Optional[str], device) -> str:
 
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
-                    softcap=0.0, scale=None, impl: Optional[str] = None):
+                    softcap=0.0, scale=None, write=None,
+                    impl: Optional[str] = None):
+    """Paged attention; with ``write`` the layer's new K/V rows are
+    written into ``k_pages``/``v_pages`` first, in the same launch under
+    ``"cuda"`` (see
+    :func:`repro_torch.kernels.paged_attention.paged_attention`)."""
     if resolve_impl(impl, q.device) == "cuda":
         return _pa.paged_attention(q, k_pages, v_pages, block_table, lengths,
-                                   softcap=softcap, scale=scale)
+                                   softcap=softcap, scale=scale, write=write)
+    if write is not None:
+        index, k_new, v_new, _, _ = write
+        return _ref.paged_attention_write_ref(
+            q, k_pages, v_pages, block_table, lengths, index.idx[0],
+            index.idx[1], k_new, v_new, softcap=softcap, scale=scale)
     return _ref.paged_attention_ref(q, k_pages, v_pages, block_table, lengths,
                                     softcap=softcap, scale=scale)
 

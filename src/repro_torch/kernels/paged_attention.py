@@ -10,7 +10,13 @@ unwritten pages are dead entries (-1).
 ``csrc/paged_attention.cu`` and ``csrc/paged_scatter.cu``;
 :func:`paged_scatter_indexed` is the scatter's per-layer form, through a
 :class:`ScatterIndex` that :func:`scatter_index` builds once per forward
-and pools that :func:`check_scatter_pools` checked once.  Each takes the
+and pools that :func:`check_scatter_pools` checked once.
+``paged_attention(..., write=...)`` is the attention launch with the
+layer's new K/V rows folded in (the decode and chunked-prefill write):
+it writes them into the pages and reads them where they already are,
+through a :class:`WriteIndex` that :func:`write_index` builds once per
+forward; the standalone scatter serves every write that no attention
+follows.  Each takes the
 plain PyTorch version (``kernels/ref.py``) only for tensors that lie on the
 CPU; for CUDA tensors it checks what the kernel relies on, launches it on
 the current stream, counts the launch in ``build.launch_counts``, and
@@ -21,6 +27,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -130,6 +137,7 @@ def split_pages(plan: SplitPlan, n_live: int):
     return work
 
 
+@functools.lru_cache(maxsize=None)
 def smem_bytes(dtype: torch.dtype, G: int, D: int) -> int:
     """The kernel's shared memory for one block (``smem_bytes`` in the
     source): q as f32 rows for G rounded up to 4 heads, each warp's two
@@ -171,47 +179,71 @@ def paged_attention(
     *,
     softcap: float = 0.0,
     scale: Optional[float] = None,
+    write: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Ragged paged attention, ``(B, H, D)`` f32 out.  CPU tensors take
     :func:`~repro_torch.kernels.ref.paged_attention_ref`; CUDA tensors the
     kernel of ``csrc/paged_attention.cu``, split over pages by
     :func:`split_plan`, with its partials in a scratch buffer from
-    ``torch.empty``.  Reads neither the lengths nor the table to the host."""
+    ``torch.empty``.  Reads neither the lengths nor the table to the host.
+
+    ``write=(index, k_new, v_new, new_lo, new_base)`` folds a write into
+    the launch: the T new rows ``k_new``/``v_new`` ``(T, Hkv, D)``, in the
+    pages' dtype, land at ``index``'s ``(blk, slot)`` (a
+    :class:`ScatterIndex`), and row b reads its positions ``p >=
+    new_lo[b]`` from new row ``new_base[b] + p - new_lo[b]`` (``(B,)``
+    int32 tensors, from :func:`write_index`).  The caller's contract: that
+    row is the one the table names for p, and no row reads a written slot
+    below its ``new_lo``.  The result and the pages are then those of
+    :func:`paged_scatter_indexed` followed by the attention alone, bit for
+    bit; CPU tensors take
+    :func:`~repro_torch.kernels.ref.paged_attention_write_ref`.  Counted
+    as ``paged_attention+write``."""
+    if write is not None:
+        _check_write(write, q, k_pages)
     if q.device.type == "cpu":
+        if write is not None:
+            index, k_new, v_new, _, _ = write
+            return _ref.paged_attention_write_ref(
+                q, k_pages, v_pages, block_table, lengths, index.idx[0],
+                index.idx[1], k_new, v_new, softcap=softcap, scale=scale)
         return _ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                         lengths, softcap=softcap, scale=scale)
     B, H, D = q.shape
     P, page, Hkv, Dk = k_pages.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dev = q.device
+    # messages are str.format patterns, filled only on a failure: these
+    # checks run on every layer's launch
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_table", block_table), ("lengths", lengths)):
-        check(t.device == dev, f"{name} on {t.device}, q on {dev}")
-        check(t.is_contiguous(), f"{name} must be contiguous")
+        check(t.device == dev, "{} on {}, q on {}", name, t.device, dev)
+        check(t.is_contiguous(), "{} must be contiguous", name)
     check(q.dtype == torch.float32 and q.is_contiguous(),
           "q must be contiguous float32")
     check(k_pages.dtype in _PAGE_DTYPES and v_pages.dtype == k_pages.dtype,
-          f"pages must be float32 or bfloat16, got {k_pages.dtype}/"
-          f"{v_pages.dtype}")
+          "pages must be float32 or bfloat16, got {}/{}", k_pages.dtype,
+          v_pages.dtype)
     check(v_pages.shape == k_pages.shape and Dk == D,
-          f"kernel takes Dv == D: q {tuple(q.shape)}, k_pages "
-          f"{tuple(k_pages.shape)}, v_pages {tuple(v_pages.shape)}")
-    check(H % Hkv == 0, f"H={H} is not a multiple of Hkv={Hkv}")
+          "kernel takes Dv == D: q {}, k_pages {}, v_pages {}",
+          tuple(q.shape), tuple(k_pages.shape), tuple(v_pages.shape))
+    check(H % Hkv == 0, "H={} is not a multiple of Hkv={}", H, Hkv)
     check(block_table.dtype == torch.int32 and block_table.dim() == 2
           and block_table.shape[0] == B, "block_table must be (B, n) int32")
-    check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,),
+    check(lengths.dtype == torch.int32 and lengths.shape == (B,),
           "lengths must be (B,) int32")
     elem = k_pages.element_size()
     G = H // Hkv
     check(D * elem % 16 == 0 and G * D <= MAX_GD,
-          f"kernel takes rows of a multiple of 16 bytes and G * D <= "
-          f"{MAX_GD}: D={D} ({k_pages.dtype}), G={G}")
+          "kernel takes rows of a multiple of 16 bytes and G * D <= {}: "
+          "D={} ({}), G={}", MAX_GD, D, k_pages.dtype, G)
     check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
           "page pools must be 16-byte aligned")
     smem = smem_bytes(k_pages.dtype, G, D)
-    check(smem <= MAX_SMEM, f"G={G}, D={D} in {k_pages.dtype} needs {smem} "
-          f"bytes of shared memory, more than {MAX_SMEM}")
-    check(B <= 2 ** 31 - 1 and Hkv <= 65535, f"grid ({B}, {Hkv}) too large")
+    check(smem <= MAX_SMEM, "G={}, D={} in {} needs {} bytes of shared "
+          "memory, more than {}", G, D, k_pages.dtype, smem, MAX_SMEM)
+    check(B <= 2 ** 31 - 1 and Hkv <= 65535, "grid ({}, {}) too large", B,
+          Hkv)
     out = torch.empty((B, H, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
@@ -225,17 +257,60 @@ def paged_attention(
                        dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     counters = _arrival_counters(dev, stream, B * Hkv)
+    new = [None] * 6 + [0]
+    if write is not None:
+        index, k_new, v_new, new_lo, new_base = write
+        ptr = index.idx.data_ptr()
+        new = [k_new.data_ptr(), v_new.data_ptr(), ptr, ptr + 4 * index.T,
+               new_lo.data_ptr(), new_base.data_ptr(), index.T]
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     err = build.entry("paged_attention",
-                      [i] + [p] * 8 + [i] * 9 + [f, f, p])(
+                      [i] + [p] * 14 + [i] * 10 + [f, f, p])(
         _PAGE_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, H, Hkv, D,
-        P, page, block_table.shape[1], plan.max_units, plan.n_splits,
-        float(scale), float(softcap or 0.0), stream)
-    raise_on(err, "paged_attention")
-    count("paged_attention")
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), *new, B, H,
+        Hkv, D, P, page, block_table.shape[1], plan.max_units,
+        plan.n_splits, float(scale), float(softcap or 0.0), stream)
+    name = "paged_attention" if write is None else "paged_attention+write"
+    raise_on(err, name)
+    count(name)
     return out
+
+
+def _check_write(write, q, k_pages) -> None:
+    """What the fused write relies on, on any device: the five parts,
+    new rows ``(T, Hkv, D)`` in the pages' dtype on their device,
+    contiguous, a :class:`ScatterIndex` of T rows there, ``(B,)`` int32
+    ``new_lo``/``new_base``, and at least one row for the launch's blocks
+    to write from; on a CUDA device also 16-byte aligned new rows (the
+    pools' rows the attention checks).  Messages are formatted only on a
+    failure: this runs on every layer's launch."""
+    check(isinstance(write, tuple) and len(write) == 5,
+          "write must be (index, k_new, v_new, new_lo, new_base)")
+    index, k_new, v_new, new_lo, new_base = write
+    check(isinstance(index, ScatterIndex), "write's index must be a "
+          "ScatterIndex (scatter_index / write_index)")
+    B, T = q.shape[0], index.T
+    dev, dt = k_pages.device, k_pages.dtype
+    want = (T, k_pages.shape[2], k_pages.shape[3])
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        check(t.shape == want, "{} must be {}, got {}", name, want,
+              t.shape)
+        check(t.dtype == dt, "{} must be in the pages' dtype {}, got {}",
+              name, dt, t.dtype)
+        check(t.device == dev and t.is_contiguous(),
+              "{} must be contiguous on {}", name, dev)
+    for name, t in (("new_lo", new_lo), ("new_base", new_base)):
+        check(t.dtype == torch.int32 and t.shape == (B,) and t.device == dev
+              and t.is_contiguous(), "{} must be ({},) int32 on {}", name,
+              B, dev)
+    check(index.idx.device == dev and index.idx.shape == (2, T)
+          and index.idx.is_contiguous(), "write's index must be (2, {}) on "
+          "{}", T, dev)
+    check(B > 0 or T == 0, "a write needs a row to launch from")
+    if dev.type == "cuda":
+        check(k_new.data_ptr() % 16 == 0 and v_new.data_ptr() % 16 == 0,
+              "new rows must be 16-byte aligned")
 
 
 class ScatterIndex(NamedTuple):
@@ -256,6 +331,13 @@ def scatter_index(blk, slot, *, num_blocks: int, page: int,
     current stream (:func:`to_device`), ahead of every scatter that reads
     it; PyTorch's caching host allocator keeps that buffer until the copy
     has run, so a later forward's index never lands under this one's."""
+    blk, slot = _checked(blk, slot, num_blocks, page)
+    return ScatterIndex(to_device(np.stack([blk, slot]).astype(np.int32),
+                                  device), blk.shape[0])
+
+
+def _checked(blk, slot, num_blocks: int, page: int):
+    """``blk``/``slot`` as int64 vectors, checked in range."""
     blk = np.asarray(blk, np.int64).reshape(-1)
     slot = np.asarray(slot, np.int64).reshape(-1)
     T = blk.shape[0]
@@ -264,8 +346,36 @@ def scatter_index(blk, slot, *, num_blocks: int, page: int,
           f"block ids must lie in [0, {num_blocks})")
     check(T == 0 or (slot.min() >= 0 and slot.max() < page),
           f"slots must lie in [0, {page})")
-    return ScatterIndex(to_device(np.stack([blk, slot]).astype(np.int32),
-                                  device), T)
+    return blk, slot
+
+
+class WriteIndex(NamedTuple):
+    """A fused write's index, from one upload: the new rows'
+    :class:`ScatterIndex` and each attention row's ``new_lo`` (its first
+    position held by a new row) and ``new_base`` (that new row), ``(B,)``
+    int32 on the pages' device."""
+    index: ScatterIndex
+    new_lo: torch.Tensor
+    new_base: torch.Tensor
+
+
+def write_index(blk, slot, new_lo, new_base, *, num_blocks: int, page: int,
+                device) -> WriteIndex:
+    """:func:`scatter_index` of the T new rows and the B rows' ``new_lo``
+    / ``new_base``, checked on the host (``new_lo >= 0``, ``new_base`` in
+    ``[0, T)``) and uploaded as one int32 buffer."""
+    blk, slot = _checked(blk, slot, num_blocks, page)
+    lo = np.asarray(new_lo, np.int64).reshape(-1)
+    base = np.asarray(new_base, np.int64).reshape(-1)
+    T, B = blk.shape[0], lo.shape[0]
+    check(base.shape[0] == B, "new_lo and new_base differ in length")
+    check(B == 0 or (lo.min() >= 0 and base.min() >= 0
+                     and base.max() < max(T, 1)),
+          f"new_lo must be >= 0 and new_base in [0, {T})")
+    buf = to_device(np.concatenate([blk, slot, lo, base]).astype(np.int32),
+                    device)
+    return WriteIndex(ScatterIndex(buf[:2 * T].view(2, T), T),
+                      buf[2 * T:2 * T + B], buf[2 * T + B:])
 
 
 def check_scatter_pools(k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:

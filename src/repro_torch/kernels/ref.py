@@ -18,6 +18,9 @@ holds each CUDA kernel against them on the card.
 * :func:`paged_scatter_ref` -- the token scatter
   ``pages[layer, blk[t], slot[t]] = vals[t]`` into the K and V pools, in
   place, for one layer or all.
+* :func:`paged_attention_write_ref` -- the paged kernel's fused write:
+  :func:`paged_scatter_ref` of the new rows into one layer's pages, then
+  :func:`paged_attention_ref`.
 * :func:`linear_scan_ref` / :func:`linear_scan_exact` -- chunked gated
   linear recurrences (Mamba2 scalar decay / RWKV6 vector decay): the
   factored form the scan kernel implements, and the exact oracle.
@@ -282,6 +285,32 @@ def paged_scatter_ref(
             pages[:, blk, slot] = vals
         else:
             pages[layer, blk, slot] = vals
+
+
+def paged_attention_write_ref(
+    q: torch.Tensor,             # (B, H, D)
+    k_pages: torch.Tensor,       # (P, page, Hkv, D), written in place
+    v_pages: torch.Tensor,       # (P, page, Hkv, D)
+    block_table: torch.Tensor,   # (B, max_pages) int32 page ids (-1 pad)
+    lengths: torch.Tensor,       # (B,) valid tokens per sequence
+    block_idx: torch.Tensor,     # (T,) destination page per new row
+    slot_idx: torch.Tensor,      # (T,) destination slot per new row
+    k_new: torch.Tensor,         # (T, Hkv, D)
+    v_new: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The paged kernel's fused write: the new rows scattered into the
+    layer's pages (:func:`paged_scatter_ref`), then
+    :func:`paged_attention_ref` over the pages as they now stand.  The
+    kernel reads the new rows where its rows' ``new_lo``/``new_base`` say
+    they sit instead of from the pages; under its callers' contract those
+    are the same bytes, so this is its function."""
+    paged_scatter_ref(k_pages[None], v_pages[None], block_idx, slot_idx,
+                      k_new, v_new, layer=0)
+    return paged_attention_ref(q, k_pages, v_pages, block_table, lengths,
+                               softcap=softcap, scale=scale)
 
 
 # ----------------------------------------------------------------------------

@@ -29,13 +29,16 @@ Lifecycle of a physical page (the paper's retire/ping/free cycle):
 WHERE the pages live is the ``storage`` seam:
 
 * ``storage="device"`` -- one contiguous ``(L, num_blocks, page, Hkv, hd)``
-  tensor each for K and V on the store's device, updated IN PLACE.  Every
-  token write is one launch of the page-scatter kernel (one per layer, or
-  one for all layers with ``layer=None``), through a scatter index that a
-  forward builds once (:meth:`scatter_index`, :meth:`token_index`) and
-  hands to every layer's write; ``layer_pages`` returns the
-  zero-copy views ``k[li]``/``v[li]``, so a steady-state decode step moves
-  no host->device KV bytes.  The zero and poison fills are
+  tensor each for K and V on the store's device, updated IN PLACE.  A
+  decode step's or prefill chunk's write goes into that layer's paged
+  attention launch (:meth:`attend`, through a :meth:`write_index` that the
+  forward builds once and hands to every layer); every other write
+  (:meth:`write_prefill`, :meth:`append_tokens`, :meth:`append_token`) is
+  one launch of the page-scatter kernel (one per layer, or one for all
+  layers with ``layer=None``), through a scatter index built once
+  (:meth:`scatter_index`, :meth:`token_index`).  ``layer_pages`` returns
+  the zero-copy views ``k[li]``/``v[li]``, so a steady-state decode step
+  moves no host->device KV bytes.  The zero and poison fills are
   ``index_fill_`` on the same stream.
 * ``storage="host"`` -- the same tensors in host memory.  Cheap to write,
   but every read uploads the whole layer to the device: O(pool) bytes per
@@ -64,10 +67,11 @@ import torch
 from repro_torch.bridge import numpy_to_tensor
 from repro_torch.core.sim.engine import UseAfterFree
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.paged_attention import (ScatterIndex,
+from repro_torch.kernels.paged_attention import (ScatterIndex, WriteIndex,
                                                 build_block_table,
                                                 check_scatter_pools,
-                                                scatter_index, to_device)
+                                                scatter_index, to_device,
+                                                write_index)
 from repro_torch.models.layers import torch_dtype
 
 __all__ = ["PagedKVStore", "kv_layer_order"]
@@ -98,8 +102,9 @@ class PagedKVStore:
 
     ``device`` is where the kernels run (``cuda`` unless given);
     ``storage`` where the pages live (see the module docstring);
-    ``scatter_impl`` ("torch" | "cuda" | None) picks the write primitive
-    (None: the kernel on a CUDA device, the plain version on the CPU).
+    ``scatter_impl`` ("torch" | "cuda" | None) picks the standalone write
+    primitive (None: the kernel on a CUDA device, the plain version on the
+    CPU); :meth:`attend` takes its caller's ``impl``.
     """
 
     #: freed-page fill value (finite on purpose; see :meth:`on_free`)
@@ -218,6 +223,18 @@ class PagedKVStore:
         return scatter_index(blk, slot, num_blocks=self.num_blocks,
                              page=self.page, device=self._k.device)
 
+    def write_index(self, blk: Sequence[int], slot: Sequence[int],
+                    new_lo: Sequence[int],
+                    new_base: Sequence[int]) -> WriteIndex:
+        """:meth:`scatter_index` of the new rows with each attention row's
+        ``new_lo``/``new_base`` (see :meth:`attend`), in one upload, for
+        every layer of a forward.  Counts as one index build."""
+        with self._lock:
+            self.index_builds += 1
+        return write_index(blk, slot, new_lo, new_base,
+                           num_blocks=self.num_blocks, page=self.page,
+                           device=self._k.device)
+
     def token_index(self, blocks: Sequence[int], start: int,
                     T: int) -> ScatterIndex:
         """:meth:`scatter_index` of T consecutive positions from ``start``,
@@ -276,10 +293,43 @@ class PagedKVStore:
         self.bytes_written += written
         return written
 
+    def attend(self, layer: int, q: torch.Tensor, table: torch.Tensor,
+               lengths: torch.Tensor, windex: WriteIndex, k, v, *,
+               softcap: float = 0.0, scale: Optional[float] = None,
+               impl: Optional[str] = None) -> torch.Tensor:
+        """Write the new rows ``k``/``v`` ``(T, Hkv, hd)`` of ``layer`` at
+        ``windex``, then paged attention of ``q`` ``(B, H, hd)`` f32 over
+        the layer's pages through ``table``/``lengths``: the decode step's
+        and the prefill chunk's per-layer write and read.  Device storage:
+        ONE launch, the attention kernel with the write folded in
+        (``kernels.ops.paged_attention(write=...)``), on the current
+        stream.  Host storage: the write in host memory, the layer's
+        upload, then the attention.  Under :meth:`write_guard`; counts
+        ``bytes_written`` as the standalone writes do.  Returns the
+        ``(B, H, hd)`` f32 output."""
+        with self._guard:
+            if self.storage == "device":
+                k = self._tensor(k).to(self.dtype).contiguous()
+                v = self._tensor(v).to(self.dtype).contiguous()
+                out = kops.paged_attention(
+                    q, self._k[layer], self._v[layer], table, lengths,
+                    softcap=softcap, scale=scale, impl=impl,
+                    write=(windex.index, k, v, windex.new_lo,
+                           windex.new_base))
+            else:
+                self._scatter(layer, windex.index, k, v)
+                k_pages, v_pages = self.layer_pages(layer)
+                out = kops.paged_attention(q, k_pages, v_pages, table,
+                                           lengths, softcap=softcap,
+                                           scale=scale, impl=impl)
+        self.bytes_written += 2 * int(k.numel()) * self._k.element_size()
+        return out
+
     def write_guard(self):
-        """Held by the paged forward across its per-layer write -> fetch ->
-        kernel-launch window: an RLock on device storage (writers issue in
-        turn), a no-op on host storage."""
+        """Held across a write -> fetch -> kernel-launch window (:meth:`attend`
+        holds it for the paged forward's per-layer launch): an RLock on
+        device storage (writers issue in turn), a no-op on host
+        storage."""
         return self._guard
 
     def sync(self) -> None:

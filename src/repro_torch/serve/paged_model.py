@@ -3,8 +3,10 @@ through the physically paged KV store and the paged-attention kernel.
 
 Attention reads K/V straight out of the
 :class:`~repro_torch.runtime.kv_store.PagedKVStore`'s pages through a
-per-row block table, and the only per-token write is one page-scatter
-launch per layer.  The projections, RoPE, norms and the MLP are plain
+per-row block table, and each layer's new K/V rows are written by that
+layer's attention launch (:meth:`PagedKVStore.attend`): one launch per
+layer on device storage, no scatter launch.  The projections, RoPE, norms
+and the MLP are plain
 PyTorch (the reference leaves them to XLA); the two kernels are the
 hand-written CUDA ones behind ``kernels/ops.py``.
 
@@ -67,17 +69,19 @@ def prefill_kv(params, cfg: ArchConfig,
 
 
 def _paged_forward(params, cfg: ArchConfig, store: PagedKVStore,
-                   blocks, lens, tokens, *, impl, write_layer) -> torch.Tensor:
+                   blocks, lens, tokens, *, impl, windex) -> torch.Tensor:
     """The transformer loop both paged entry points share: embed the fed
-    tokens (one per row), and per layer project -> rope -> hand the new K/V
-    to ``write_layer`` (which scatters them into the pages) -> paged
-    attention through the padded block table.
+    tokens (one per row), and per layer project -> rope -> write the new
+    K/V and attend in one :meth:`PagedKVStore.attend` through the padded
+    block table.
 
     ``blocks``/``lens``/``tokens`` are per-ROW: a decode step has one row
     per request; a prefill chunk has one row per chunk position, all rows
-    sharing ONE block list.  Causality is the kernel's length masking: row
-    i's K/V is in the pages before any row attends (``write_layer`` runs
-    first), and row i attends only to positions < lens[i] + 1.
+    sharing ONE block list.  Row i's K/V is new row i of ``windex`` (the
+    forward's :meth:`PagedKVStore.write_index`), written before any row's
+    attention reads it, so each new position attends to itself (and, in a
+    prefill chunk, to its chunk-mates); causality is the kernel's length
+    masking, row i attending only to positions < lens[i] + 1.
     """
     dev = store.device
     B = len(blocks)
@@ -114,15 +118,11 @@ def _paged_forward(params, cfg: ArchConfig, store: PagedKVStore,
             k = rms_norm(k, ap["k_scale"], cfg.norm_eps)
         q, k = rotate(q, rope), rotate(k, rope)
 
-        # physical write: every row's K/V lands in its page BEFORE the
-        # attention, so each new position attends to itself (and, in a
-        # prefill chunk, to its chunk-mates) -- model dtype end to end
-        with store.write_guard():
-            write_layer(li, k.contiguous(), v.contiguous())    # (B, Hkv, hd)
-            k_pages, v_pages = store.layer_pages(li)
-            out = kops.paged_attention(
-                q.float().contiguous(), k_pages, v_pages, table, att_lens,
-                softcap=cfg.attn_softcap, scale=scale, impl=impl)
+        # the rows' K/V land in their pages and are attended in one
+        # launch -- model dtype end to end
+        out = store.attend(li, q.float().contiguous(), table, att_lens,
+                           windex, k.contiguous(), v.contiguous(),
+                           softcap=cfg.attn_softcap, scale=scale, impl=impl)
         out = out.to(dt)                                       # (B, H, hd)
         o = out.flatten(1) @ ap["wo"].to(dt).flatten(0, 1)
         if cfg.post_norms:
@@ -158,22 +158,20 @@ def paged_decode_step(
     impl=None,
 ) -> torch.Tensor:
     """One batched decode step for a ragged batch of requests: each fed
-    token's K/V is appended at page slot ``lens[b]`` (ONE scatter launch
-    per layer for the whole batch, through one index built for the whole
-    forward), then every layer's attention reads the pages through the
-    padded block table -- prefix-shared pages in place.  Returns the
-    ``(B, vocab_padded)`` logits of the new position."""
+    token's K/V is written at page slot ``lens[b]`` by the layer's
+    attention launch (new row b, read by row b from position ``lens[b]``,
+    through one index built for the whole forward), and every layer's
+    attention reads the pages through the padded block table --
+    prefix-shared pages in place.  Returns the ``(B, vocab_padded)``
+    logits of the new position."""
     page = store.page
     lens_np = np.asarray(lens, np.int64)
     blk = [blocks[b][int(p) // page] for b, p in enumerate(lens_np)]
     slot = [int(p) % page for p in lens_np]
-    index = store.scatter_index(blk, slot)    # uploaded once, every layer
-
-    def write_layer(li, k_b, v_b):                            # (B, Hkv, hd)
-        store.append_tokens(blk, slot, k_b, v_b, layer=li, index=index)
-
+    # uploaded once, every layer
+    windex = store.write_index(blk, slot, lens_np, np.arange(len(lens_np)))
     return _paged_forward(params, cfg, store, blocks, lens, last_tokens,
-                          impl=impl, write_layer=write_layer)
+                          impl=impl, windex=windex)
 
 
 def prefill_chunk_step(
@@ -188,22 +186,21 @@ def prefill_chunk_step(
 ) -> torch.Tensor:
     """One chunked-prefill forward: the chunk's positions become batch ROWS
     over one shared block table.  Row i carries prompt position
-    ``start + i``; its K/V is written (one ``write_prefill`` scatter per
-    layer, one index for the chunk) before any row attends, and the per-row
+    ``start + i``; its K/V is new row i of the layer's attention launch,
+    which writes it into the pages and from which every row reads
+    positions ``start`` on (one index for the chunk), and the per-row
     length mask keeps attention causal within the chunk while earlier
     chunks and prefix-shared pages are read in place.  Returns the
     ``(chunk, vocab_padded)`` logits."""
     c = len(tokens)
     rows = [list(blocks)] * c
     lens = list(range(start, start + c))
-    index = store.token_index(blocks, start, c)   # uploaded once, every layer
-
-    def write_layer(li, k_c, v_c):                            # (c, Hkv, hd)
-        store.write_prefill(blocks, k_c, v_c, start=start, layer=li,
-                            index=index)
-
+    pos = np.arange(start, start + c)
+    # uploaded once, every layer
+    windex = store.write_index(np.asarray(blocks, np.int64)[pos // store.page],
+                               pos % store.page, [start] * c, [0] * c)
     return _paged_forward(params, cfg, store, rows, lens, tokens,
-                          impl=impl, write_layer=write_layer)
+                          impl=impl, windex=windex)
 
 
 def prefill_kv_chunked(

@@ -554,8 +554,9 @@ def _named_np(tree, prefix=""):
 def test_port_checkpoint_restores_in_reference(tmp_path):
     jcfg, jp, jst = _smoke_state()
     tstate = {"params": params_from_jax(jp), "opt": opt_state_from_jax(jst)}
-    CheckpointManager(str(tmp_path)).save(5, tstate, extra={"data_step": 5},
-                                          async_=True)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, tstate, extra={"data_step": 5}, async_=True)
+    mgr.wait()      # the writer thread's files before the reference reads
     tmpl_p = j_init(jcfg, jax.random.PRNGKey(0))
     restored, meta = JCheckpointManager(str(tmp_path)).restore(
         {"params": tmpl_p, "opt": jadamw.adamw_init(tmpl_p)})
