@@ -1,0 +1,5 @@
+"""The serving benchmark of the PyTorch/CUDA port (``repro_torch``).
+
+``python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json``; see README.md.
+"""

@@ -1,0 +1,10 @@
+"""The benchmark's tests: the checkout's root (for ``perfbench``) and
+``src`` (for the port) on the path."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT / "src", ROOT):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
